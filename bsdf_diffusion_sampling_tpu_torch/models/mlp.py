@@ -1,0 +1,31 @@
+"""Plain MLPs over parameter lists (counterpart of
+the JAX package's `models/mlp.py`).
+
+Parameters are a list of `{"w": (in, out)[, "b": (out,)]}` dicts of
+tensors: the JAX layout `y = x @ W`, kept as is (no transpose), so the
+fused kernels and the checkpoint converter see the same arrays as the JAX
+package.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+
+
+def mlp_apply(params: List[dict], x: torch.Tensor, activation=F.silu) -> torch.Tensor:
+    """SiLU-hidden MLP with a linear output layer; bias where a layer has one."""
+    h = x
+    for i, layer in enumerate(params):
+        h = h @ layer["w"]
+        if "b" in layer:
+            h = h + layer["b"]
+        if i + 1 < len(params):
+            h = activation(h)
+    return h
+
+
+def mlp_dims(params: List[dict]) -> List[int]:
+    return [params[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in params]

@@ -1,0 +1,86 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each `csrc/*.cu` file is compiled on first use with `nvcc` for Hopper
+(`sm_90a`) into a shared library with a plain C interface, which `ctypes`
+loads. Libraries go to `_build/` inside the package, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused. Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def library_path(source: str) -> Path:
+    """Where the library of `csrc/<source>` goes, keyed by content and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / source).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(sources: Iterable[str]) -> Dict[str, Path]:
+    """Compile every source whose library is missing, one `nvcc` per source,
+    all started together. Returns {source: library path}; the compiler's
+    output (registers, spills) is kept beside each library as `.log`."""
+    out = {s: library_path(s) for s in sources}
+    todo = {s: p for s, p in out.items() if not p.exists()}
+    if not todo:
+        return out
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for s, p in todo.items():
+        tmp = p.with_name(f"{p.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for s, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        todo[s].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{s}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[s])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<source>`, built first if needed."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([source])[source]))
+            _libs[source] = lib
+        return lib

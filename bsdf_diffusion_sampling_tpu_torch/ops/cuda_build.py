@@ -1,9 +1,10 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each `csrc/*.cu` file is compiled on first use with `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface, which `ctypes`
-loads. Libraries go to `_build/` inside the package, named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
+loads; each host `csrc/*.cpp` file (the BVH builder) is compiled the same way
+with `g++`. Libraries go to `_build/` inside the package, named by a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. Nothing is built when a module is imported.
 """
 
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -25,6 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -40,27 +42,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _flags(source: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS if source.endswith(".cu") else HOST_FLAGS
+
+
 def library_path(source: str) -> Path:
     """Where the library of `csrc/<source>` goes, keyed by content and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(source)).encode())
     h.update((CSRC / source).read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: Iterable[str]) -> Dict[str, Path]:
-    """Compile every source whose library is missing, one `nvcc` per source,
-    all started together. Returns {source: library path}; the compiler's
-    output (registers, spills) is kept beside each library as `.log`."""
+    """Compile every source whose library is missing, one compiler (`nvcc`
+    for `.cu`, `g++` for `.cpp`) per source, all started together. Returns
+    {source: library path}; the compiler's output (registers, spills) is kept
+    beside each library as `.log`."""
     out = {s: library_path(s) for s in sources}
     todo = {s: p for s, p in out.items() if not p.exists()}
     if not todo:
         return out
-    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for s, p in todo.items():
         tmp = p.with_name(f"{p.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+        cc = nvcc_path() if s.endswith(".cu") else "g++"
+        cmd = [cc, *_flags(s), "-o", str(tmp), str(CSRC / s)]
         procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
     for s, (proc, tmp) in procs.items():
@@ -72,7 +79,7 @@ def build(sources: Iterable[str]) -> Dict[str, Path]:
         else:
             os.replace(tmp, todo[s])
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return out
 
 

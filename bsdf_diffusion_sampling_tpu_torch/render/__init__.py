@@ -1,1 +1,2 @@
-"""The neural BSDF adapter of the renderer."""
+"""The renderer: scene loading, the 8-wide BVH and its traversal kernel,
+materials, the wavefront path tracer and the neural BSDF adapter."""

@@ -1,0 +1,372 @@
+"""Wavefront path tracer with next-event estimation + MIS, counterpart of
+the JAX package's `render/integrator.py`.
+
+Every bounce runs on the whole wavefront at once: closest hits through the
+8-wide BVH (kernel K5 on the card, its plain walker on the CPU), masked
+material dispatch (no queue compaction), NEE against the envmap and point
+lights with shadow rays (K5's any-hit variant), BSDF sampling on every
+matball in one batch (kernel K1 for a neural disk matball), MIS by the
+power heuristic, and Russian roulette from depth RR_DEPTH. The film is a
+scatter-free segment sum over the sample-major ray layout.
+
+The matball material is pluggable (`MatballFns`): ground-truth measured
+RGL importance sampling, or the neural ODE sampler, through the identical
+integrator. A bounce takes its random numbers as explicit tensors
+(`BounceRandoms`, drawn by `draw_bounce` from one `torch.Generator`), so a
+test can hand it the very draws the JAX package makes from its keys.
+
+The JAX package's jitted bounce / pass programs (`lax.scan` over bounces
+and passes) are Python loops here; its sharded renders (`mesh=`) wait for
+the multi-device slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
+from bsdf_diffusion_sampling_tpu_torch.core.prng import draw_seed, root_generator
+from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
+from bsdf_diffusion_sampling_tpu_torch.render.envmap import EnvMap, eval_env, pdf_env, sample_env
+from bsdf_diffusion_sampling_tpu_torch.render.lambert import (
+    checkerboard,
+    cosine_sample,
+    diffuse_eval,
+    diffuse_pdf,
+    make_frame,
+    to_local,
+    to_world,
+)
+from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, Scene
+from bsdf_diffusion_sampling_tpu_torch.render.bvh8 import BVH8
+from bsdf_diffusion_sampling_tpu_torch.render.traverse8 import Hit, intersect8
+
+RR_DEPTH = 3
+RR_MAX = 0.95
+RAY_EPS = 1e-3
+GRAY = 0.18  # `scene_measured.xml:46`
+
+
+class MatballFns(NamedTuple):
+    """Local-frame material callbacks for one preview object."""
+
+    draw: Callable  # (generator, n) -> the randoms one bounce's sample() takes
+    sample: Callable  # (randoms, wi_local) -> (wo_local, pdf)
+    eval: Callable  # (wi_local, wo_local) -> (N, 3) f*cos
+    eval_pdf: Callable  # (wi_local, wo_local) -> ((N, 3) f*cos, (N,) the MIS pdf)
+    weight_filter: Callable  # (rgb_weight) -> rgb_weight (firefly policy)
+
+
+class BounceRandoms(NamedTuple):
+    """Every random number one bounce consumes."""
+
+    u_nee: torch.Tensor  # (N, 2) envmap NEE draw
+    u_diffuse: torch.Tensor  # (N, 2) cosine draw of the diffuse materials
+    ball: tuple  # per matball, what its `draw` returned
+    u_rr: torch.Tensor  # (N,) Russian roulette
+
+
+def _uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return u if (lo, hi) == (0.0, 1.0) else u * (hi - lo) + lo
+
+
+def draw_bounce(gen: torch.Generator, n: int, matballs: tuple) -> BounceRandoms:
+    return BounceRandoms(_uniform(gen, (n, 2)), _uniform(gen, (n, 2)),
+                         tuple(mb.draw(gen, n) for mb in matballs), _uniform(gen, (n,)))
+
+
+def _as_tuple(matball) -> tuple:
+    """Normalize to a tuple of MatballFns: ball slot i shades material id
+    MAT_BALL + i."""
+    return (matball,) if isinstance(matball, MatballFns) else tuple(matball)
+
+
+def _ray_sort_key(rd, active):
+    """Traversal-coherence sort key: direction octant, dominant axis and a
+    grazing bit for live rays, a sentinel for dead ones. Sorting before
+    traversal groups rays that walk the same nodes and packs the dead rays
+    together; results are un-permuted, so the order is invisible outside."""
+    a = rd.abs()
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    octant = (rd[:, 0] > 0).to(torch.int64) * 4 + (rd[:, 1] > 0).to(torch.int64) * 2 + (rd[:, 2] > 0).to(torch.int64)
+    dom = torch.where(ax >= torch.maximum(ay, az), 0, torch.where(ay >= az, 1, 2))
+    mx = torch.maximum(ax, torch.maximum(ay, az))
+    mid = ax + ay + az - mx - torch.minimum(ax, torch.minimum(ay, az))
+    graze = (mid * 2 > mx).to(torch.int64)
+    return torch.where(active, (octant * 3 + dom) * 2 + graze, 48)
+
+
+def _sort_perm(sort_key):
+    perm = torch.argsort(sort_key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return perm, inv
+
+
+def _isect(accel: BVH8, ro, rd, active) -> Hit:
+    """Closest hit, traced in sort-key order."""
+    perm, inv = _sort_perm(_ray_sort_key(rd, active))
+    h = intersect8(accel, ro[perm], rd[perm], active=active[perm])
+    return Hit(h.t[inv], h.prim[inv], h.u[inv], h.v[inv], h.truncated)
+
+
+def _occl(accel: BVH8, ro, rd, t_max, active):
+    """(occluded, truncated) of shadow rays, traced in sort-key order."""
+    perm, inv = _sort_perm(_ray_sort_key(rd, active))
+    tm = t_max[perm]
+    h = intersect8(accel, ro[perm], rd[perm], tm, active=active[perm], any_hit=True)
+    return (h.t < tm * 0.9999)[inv], h.truncated
+
+
+def mis_weight(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
+    """Power heuristic beta=2 (`mitsuba_helper.py:139-145`)."""
+    a2 = pdf_a * pdf_a
+    w = a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-20)
+    return torch.where(pdf_a > 0, w, 0.0)
+
+
+def _albedo(mat_id, uv):
+    plane = checkerboard(uv)
+    return torch.where((mat_id == MAT_PLANE)[..., None], plane, torch.full_like(plane, GRAY))
+
+
+def _shade_eval(matballs: tuple, mat_id, uv, wi_l, wo_l):
+    """f*cos for all materials, masked by mat_id."""
+    out = diffuse_eval(_albedo(mat_id, uv), wo_l)
+    for i, mb in enumerate(matballs):
+        out = torch.where((mat_id == MAT_BALL + i)[..., None], mb.eval(wi_l, wo_l), out)
+    return out
+
+
+def _shade_eval_pdf(matballs: tuple, mat_id, uv, wi_l, wo_l):
+    """(f*cos, pdf) for all materials, each matball's from its fused
+    eval_pdf."""
+    f = diffuse_eval(_albedo(mat_id, uv), wo_l)
+    pdf = diffuse_pdf(wo_l)
+    for i, mb in enumerate(matballs):
+        fb, pb = mb.eval_pdf(wi_l, wo_l)
+        is_b = mat_id == MAT_BALL + i
+        f = torch.where(is_b[..., None], fb, f)
+        pdf = torch.where(is_b, pb, pdf)
+    return f, pdf
+
+
+def _shade_sample(matballs: tuple, rnd: BounceRandoms, mat_id, wi_l):
+    wo, pdf = cosine_sample(rnd.u_diffuse)
+    for i, mb in enumerate(matballs):
+        wo_b, pdf_b = mb.sample(rnd.ball[i], wi_l)
+        is_b = mat_id == MAT_BALL + i
+        wo = torch.where(is_b[..., None], wo_b, wo)
+        pdf = torch.where(is_b, pdf_b, pdf)
+    return wo, pdf
+
+
+def _ball_filter(matballs: tuple, mat_id, w_rgb):
+    out = w_rgb
+    for i, mb in enumerate(matballs):
+        out = torch.where((mat_id == MAT_BALL + i)[..., None], mb.weight_filter(w_rgb), out)
+    return out
+
+
+def _bounce_body(accel: BVH8, env: EnvMap, lights: torch.Tensor, state, rnd: BounceRandoms, depth: int, *,
+                 matball: tuple, mark: Callable[[str], None] | None = None):
+    """ONE path-tracing bounce for the whole wavefront. `state` is (ro, rd,
+    px, L, beta, alive, prev_pdf). Returns (state, truncated) where
+    truncated is a 0-dim bool tensor: did any traversal of this bounce hit
+    its cap. `mark(name)`, if given, is called at the end of each stage
+    (a profiler records a CUDA event there; nothing else changes)."""
+    matballs = matball
+    mark = mark or (lambda name: None)
+    ro, rd, px, L, beta, alive, prev_pdf = state
+    n = ro.shape[0]
+
+    hit = _isect(accel, ro, rd, alive)
+    truncated = hit.truncated
+    miss = hit.t >= 1e29
+    mark("closest_hit")
+
+    # escaped rays collect the envmap, MIS-weighted against the previous
+    # bounce's BSDF pdf
+    le = eval_env(env, rd)
+    w_env = torch.where(prev_pdf > 0, mis_weight(prev_pdf, pdf_env(env, rd)), 1.0)
+    L = L + beta * le * (w_env * (alive & miss))[..., None]
+    alive = alive & ~miss
+
+    # surface interaction: one attribute-row gather serves normals, uvs and
+    # the material id
+    a = accel.attr_rows[hit.prim]
+    u, v = hit.u[:, None], hit.v[:, None]
+    w0 = 1.0 - u - v
+    n_sh = w0 * a[:, 0:3] + u * a[:, 3:6] + v * a[:, 6:9]
+    uv = w0 * a[:, 9:11] + u * a[:, 11:13] + v * a[:, 13:15]
+    mat_id = a[:, 15].to(torch.int32)
+    n_sh = n_sh / torch.clamp(torch.linalg.vector_norm(n_sh, dim=-1, keepdim=True), min=1e-12)
+    p_hit = ro + rd * hit.t[:, None]
+    t, bt = make_frame(n_sh)
+    wi_l = to_local(n_sh, t, bt, -rd)
+    alive = alive & (wi_l[..., 2] > 0)
+    mark("env_hit_and_surface")
+
+    def offset(wo_local):
+        sign = torch.where(wo_local[..., 2] >= 0, RAY_EPS, -RAY_EPS)
+        return p_hit + n_sh * sign[..., None]
+
+    # ---- NEE against the envmap: sample, shadow-test, MIS
+    d_env, le_nee, pdf_e = sample_env(env, rnd.u_nee)
+    mark("nee_env_sample")
+    wo_nee_l = to_local(n_sh, t, bt, d_env)
+    f_nee, pdf_b_at_nee = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_nee_l)
+    nee_cand = alive & (pdf_e > 1e-9) & (wo_nee_l[..., 2] > 0)
+    mark("nee_eval_pdf")
+    occ, tr = _occl(accel, offset(wo_nee_l), d_env, torch.full((n,), 1e6, device=ro.device), nee_cand)
+    truncated = truncated | tr
+    mark("nee_shadow")
+    contrib = beta * f_nee * (le_nee / torch.clamp(pdf_e, min=1e-9)[..., None])
+    contrib = contrib * mis_weight(pdf_e, pdf_b_at_nee)[..., None]
+    L = L + torch.where((nee_cand & ~occ)[..., None], contrib, 0.0)
+
+    # ---- NEE against point lights (delta emitters: deterministic
+    # direction, no MIS)
+    for li in range(lights.shape[0]):
+        lp, inten = lights[li, :3], lights[li, 3:]
+        dvec = lp[None, :] - p_hit
+        dist = torch.clamp(torch.linalg.vector_norm(dvec, dim=-1), min=1e-6)
+        d_l = dvec / dist[..., None]
+        wo_light_l = to_local(n_sh, t, bt, d_l)
+        f_l = _shade_eval(matballs, mat_id, uv, wi_l, wo_light_l)
+        cand = alive & (wo_light_l[..., 2] > 0)
+        occ_l, tr = _occl(accel, offset(wo_light_l), d_l, dist - 2 * RAY_EPS, cand)
+        truncated = truncated | tr
+        contrib_l = beta * f_l * (inten[None, :] / (dist * dist)[..., None])
+        L = L + torch.where((cand & ~occ_l)[..., None], contrib_l, 0.0)
+    mark("nee_lights")
+
+    # ---- BSDF sampling. pdf_b (the sampler's own pdf) divides the weight;
+    # the MIS weights on both techniques use the material's eval_pdf pdf
+    # (for a neural matball, the measured pdf it was trained to match): a
+    # proxy shared by the NEE weight and the env-hit weight keeps the
+    # weights summing to 1, so MIS stays unbiased
+    wo_l, pdf_b = _shade_sample(matballs, rnd, mat_id, wi_l)
+    mark("bsdf_sample")
+    f_b, pdf_mis = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_l)
+    mark("bsdf_eval_pdf")
+    is_ball = mat_id >= MAT_BALL
+    ok = alive & (pdf_b > 1e-9) & (wo_l[..., 2] > 0)
+    w_rgb = f_b / torch.clamp(pdf_b, min=1e-9)[..., None]
+    w_rgb = torch.where(is_ball[..., None], _ball_filter(matballs, mat_id, w_rgb), w_rgb)
+    beta = torch.where(ok[..., None], beta * w_rgb, beta)
+    alive = alive & ok & (w_rgb.amax(dim=-1) > 0)
+
+    rd = to_world(n_sh, t, bt, wo_l)
+    ro = offset(wo_l)
+    prev_pdf = torch.where(alive, pdf_mis, 0.0)
+
+    # ---- Russian roulette (no-op while depth < RR_DEPTH)
+    if depth >= RR_DEPTH:
+        q = torch.clamp(beta.amax(dim=-1), max=RR_MAX)
+    else:
+        q = torch.ones(n, device=ro.device)
+    beta = beta / torch.clamp(q, min=1e-9)[..., None]
+    alive = alive & (rnd.u_rr < q)
+    mark("update")
+    return (ro, rd, px, L, beta, alive, prev_pdf), truncated
+
+
+def _init_wavefront(cam_vectors, u_cam, *, width, height, spp_chunk):
+    ro, rd, px = generate_rays(cam_vectors, width, height, u_cam, spp_chunk)
+    n = ro.shape[0]
+    dev = ro.device
+    return (ro.contiguous(), rd, px, torch.zeros((n, 3), device=dev), torch.ones((n, 3), device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, device=dev))  # prev_pdf 0 => camera ray: no MIS on env hit
+
+
+def _finish_pass(L, *, width, height, spp_chunk):
+    """Film accumulation without a scatter: the sample-major ray layout
+    makes the per-pixel sum a reshape and a sum over samples; every sample
+    splats with weight 1."""
+    img = L.reshape(spp_chunk, height, width, 3).sum(0)
+    return img, torch.full((height, width), float(spp_chunk), device=L.device)
+
+
+def render_pass(scene: Scene, matball, gen: torch.Generator, *, spp_chunk: int = 4, max_depth: int = 12):
+    """One accumulation pass over the whole film: ray generation, max_depth
+    bounces, film. Returns (film_sum, sample_count, truncated)."""
+    matballs = _as_tuple(matball)
+    w, h = scene.camera.width, scene.camera.height
+    n = w * h * spp_chunk
+    u_cam = _uniform(gen, (n, 2), 1e-7, 1.0)
+    state = _init_wavefront(scene.camera.vectors.to(gen.device), u_cam, width=w, height=h, spp_chunk=spp_chunk)
+    truncated = torch.zeros((), dtype=torch.bool, device=gen.device)
+    for depth in range(max_depth):
+        state, tr = _bounce_body(scene.accel, scene.envmap, scene.lights, state, draw_bounce(gen, n, matballs),
+                                 depth, matball=matballs)
+        truncated = truncated | tr
+    img, cnt = _finish_pass(state[3], width=w, height=h, spp_chunk=spp_chunk)
+    return img, cnt, truncated
+
+
+def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int = 4, max_depth: int = 12,
+           device="cuda") -> np.ndarray:
+    """Full multi-pass render. Returns the (H, W, 3) numpy image.
+
+    Runs on `device` (the card by default; the scene moves there, the
+    matballs must already be there): K5 traces CUDA tensors and its plain
+    walker CPU ones. Each pass is one wavefront over the whole film (the
+    JAX package's `max_rays_per_pass` row tiles are not needed on the
+    card), so the default 512x512 film at spp_chunk 4 is 2^20 rays. The
+    traversal's `truncated` flags stay on the device and are checked once
+    at the end."""
+    device = resolve_device(device)
+    scene = scene.to(device)
+    w, h = scene.camera.width, scene.camera.height
+    gen = root_generator(seed, device)
+    img_sum = torch.zeros((h, w, 3), device=device)
+    cnt_sum = torch.zeros((h, w), device=device)
+    truncated = torch.zeros((), dtype=torch.bool, device=device)
+    matballs = _as_tuple(matball)
+    for _ in range(max(spp // spp_chunk, 1)):
+        img, cnt, tr = render_pass(scene, matballs, gen, spp_chunk=spp_chunk, max_depth=max_depth)
+        img_sum += img
+        cnt_sum += cnt
+        truncated |= tr
+    if bool(truncated):
+        raise RuntimeError("BVH traversal hit its visit cap: the image may miss geometry")
+    return (img_sum / torch.clamp(cnt_sum, min=1.0)[..., None]).cpu().numpy()
+
+
+def measured_matball(brdf, firefly_clamp: float = 30.0) -> MatballFns:
+    """Ground-truth matball: the measured BRDF importance-samples itself."""
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import eval_brdf, eval_pdf_brdf, sample_brdf
+
+    def clamp(w_rgb):
+        lum = 0.2126 * w_rgb[..., 0] + 0.7152 * w_rgb[..., 1] + 0.0722 * w_rgb[..., 2]
+        return torch.where((lum < firefly_clamp)[..., None], w_rgb, 0.0)
+
+    return MatballFns(
+        draw=lambda gen, n: _uniform(gen, (n, 2), 1e-6, 1.0 - 1e-6),
+        sample=lambda u, wi: sample_brdf(brdf, u, wi),
+        eval=lambda wi, wo: eval_brdf(brdf, wi, wo),
+        eval_pdf=lambda wi, wo: eval_pdf_brdf(brdf, wi, wo),
+        weight_filter=clamp,
+    )
+
+
+def neural_matball(nb) -> MatballFns:
+    """Neural matball: ODE sample and its pdf (K1 draws with a kernel seed
+    from the bounce's generator), measured eval. eval_pdf is the MEASURED fused
+    (f, pdf), the MIS proxy (see the note in `_bounce_body`)."""
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import eval_pdf_brdf
+    from bsdf_diffusion_sampling_tpu_torch.render.neural import firefly_filter, neural_eval, neural_sample
+
+    return MatballFns(
+        draw=lambda gen, n: draw_seed(gen),
+        sample=lambda rand, wi: neural_sample(nb, rand, wi),
+        eval=lambda wi, wo: neural_eval(nb, wi, wo),
+        eval_pdf=lambda wi, wo: eval_pdf_brdf(nb.brdf, wi, wo),
+        weight_filter=lambda w: firefly_filter(nb, w),
+    )

@@ -7,11 +7,12 @@
   disk-area pdf into a solid-angle pdf (x cos theta_o).
 - `neural_pdf`: the pdf of a given omega_o (x cos theta_o); with
   `pdf_exact` (the default) the Newton inverse of the forward map.
+- `neural_eval`: the ground-truth measured BRDF `brdf` (f * cos).
 
-Both run through the fused kernels of `ops/fused_ode.py` on the card (the
-in-kernel Philox draw when given a `torch.Generator`), and through their
-plain versions for CPU tensors. The measured BRDF (`brdf`, `neural_eval`)
-and the spherical domains wait for later slices of the port.
+Sample and pdf run through the fused kernels of `ops/fused_ode.py` on the
+card (the in-kernel Philox draw when given a `torch.Generator` or a seed),
+and through their plain versions for CPU tensors. The spherical domains
+wait for a later slice of the port.
 
 All functions take LOCAL (shading-frame) directions, batched (N, 3).
 """
@@ -22,7 +23,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import MeasuredBRDF, eval_brdf
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
+from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.core.prng import draw_seed
 from bsdf_diffusion_sampling_tpu_torch.geometry.coords import disk_to_cart
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
@@ -40,7 +43,7 @@ class NeuralBSDF(NamedTuple):
     cfg: ModelConfig
     v_params: list  # rectified velocity net
     base_params: dict
-    brdf: object  # ground-truth eval; None until the measured BSDF is ported
+    brdf: MeasuredBRDF | None  # ground-truth eval
     T: int
     firefly_clamp: float
     packed: DiskWeights  # flat kernel weights, packed once here
@@ -58,12 +61,10 @@ def make_neural_bsdf(
     sampler_cfg: SamplerConfig = SamplerConfig(),
     device="cuda",
 ) -> NeuralBSDF:
-    """Weights (numpy arrays or tensors, in the JAX trees' layout) move to
-    `device`. The default is the card; pass device="cpu" for the plain
+    """Weights (numpy arrays or tensors, in the JAX trees' layout) and the
+    measured BRDF move to `device`. The default is the card; pass device="cpu" for the plain
     versions."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_neural_bsdf: no CUDA device; pass device='cpu' to run on the CPU")
+    device = resolve_device(device)
     if domain != "disk":
         raise NotImplementedError(f"the {domain!r} neural BSDF is not ported yet")
     v_params = params_from_jax(v_params, device)
@@ -74,7 +75,7 @@ def make_neural_bsdf(
         cfg=cfg,
         v_params=v_params,
         base_params=base_params,
-        brdf=brdf,
+        brdf=None if brdf is None else brdf.to(device),
         T=sampler_cfg.T_disk,
         firefly_clamp=sampler_cfg.firefly_clamp_disk,
         packed=prepack_disk(v_params, base_params),
@@ -89,11 +90,13 @@ def neural_sample(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(wo_local, pdf_solid_angle). Invalid draws carry pdf 0.
     `generator_or_eps` is a `torch.Generator` (one kernel seed is drawn from
-    it) or an (N, 2) tensor of standard normals."""
+    it), a (1,) int64 kernel seed, or an (N, 2) tensor of standard normals."""
     cond = encode_condition(wi_local[..., :2], nb.cfg)
     if isinstance(generator_or_eps, torch.Generator):
         seed = draw_seed(generator_or_eps).to(wi_local.device)
         x, pdf, _ = fused_sample_pdf_disk(nb.packed, cond, nb.T, seed=seed)
+    elif generator_or_eps.dtype == torch.int64:
+        x, pdf, _ = fused_sample_pdf_disk(nb.packed, cond, nb.T, seed=generator_or_eps)
     else:
         x, pdf, _ = fused_sample_pdf_disk(nb.packed, cond, nb.T, eps=generator_or_eps)
     valid = (x * x).sum(-1) <= nb.disk_valid_r2  # `brdf_measured_disk.py:69-71`
@@ -111,6 +114,11 @@ def neural_pdf(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -
                             newton_iters=nb.pdf_newton_iters)
     valid = (wi_local[..., 2] > 0) & (wo_local[..., 2] > 0)
     return torch.where(valid, torch.clamp(pdf * jac, min=0.0), 0.0)
+
+
+def neural_eval(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -> torch.Tensor:
+    """(N, 3) ground-truth measured f * cos (`brdf_measured_disk.py:103-110`)."""
+    return eval_brdf(nb.brdf, wi_local, wo_local)
 
 
 def firefly_filter(nb: NeuralBSDF, weight_rgb: torch.Tensor) -> torch.Tensor:

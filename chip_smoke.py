@@ -8,16 +8,25 @@ toolkit (`nvcc`):
     python3 chip_smoke.py --check-only  # build and kernel-vs-plain checks only
 
 Phases, each of which raises on failure:
-  1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`;
+  1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`,
+     one nvcc per source, all started together;
   2. print the card's name and power limit; turn TF32 off;
   3. make full-width disk weights from a numpy seed, write them with the
      port's `.npz` writer, read them back, and build the neural BSDF;
-  4. hold each kernel against its plain PyTorch version on the card, at
-     the main path's 2^20 rows and at 2^20 - 37 (a partly masked block);
-  5. drive the main path: bounces of neural_sample -> neural_pdf at
-     2^20 queries, with the kernels' launch counts read around it;
-  6. time each kernel, its plain version and its bound;
-  7. print the `kernels` line and the `ok` line.
+  4. hold K1 and K2 against their plain PyTorch versions on the card, at
+     2^20 rows and at 2^20 - 37 (a partly masked block);
+  5. write the procedural matpreview-size scene (61,648 triangles,
+     `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF) and load it;
+  6. hold K5 against its plain walker on primary, secondary and shadow
+     rays (closest and any hit) at 2^20 and 2^20 - 37 rays;
+  7. the sampler path: bounces of neural_sample -> neural_pdf at 2^20
+     queries, with the kernels' launch counts read around it;
+  8. the render path, this slice's main path: `cli/render.py` at 512 x 512,
+     64 spp, depth 12, in modes gt and neural-disk (after a short warm-up
+     render in each), with the launch counts read around each render, and
+     checks of the images;
+  9. time each kernel, its plain version and its bound; one bounce's stages;
+  10. print the `kernels` line and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -42,7 +51,20 @@ from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_fro
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
+from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
+from bsdf_diffusion_sampling_tpu_torch.render import traverse8 as t8
+from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
+from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
+    _bounce_body,
+    _init_wavefront,
+    _ray_sort_key,
+    _sort_perm,
+    draw_bounce,
+)
+from bsdf_diffusion_sampling_tpu_torch.render.lambert import cosine_sample, make_frame, to_world
 from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, neural_pdf, neural_sample
+from bsdf_diffusion_sampling_tpu_torch.render.procedural import write_scene
+from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, load_scene
 from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree, save_pytree
 
 N_MAIN = 1 << 20  # the wavefront of the main path, the checks and the timings
@@ -50,6 +72,12 @@ N_RAGGED = N_MAIN - 37  # a size whose last block of 128 threads is partly maske
 BOUNCES = 4
 RUNS = 7  # timed runs; the median is kept
 SEED = 0
+# The render: the procedural matpreview-size scene at the CLI's default film,
+# one 2^20-ray wavefront a pass (512 x 512 x 4), 16 passes of 12 bounces.
+RENDER_RES = 512
+RENDER_CHUNK = 4
+RENDER_SPP = 64
+RENDER_DEPTH = 12
 
 # Kernel vs plain, both fp32 on the card. The two sum in other orders, so
 # they differ by rounding only: ~1e-7 in x, ~1e-6 relative in the pdf.
@@ -193,6 +221,68 @@ def check_kernels(nb, device, n: int) -> dict:
     return out
 
 
+def k5_ray_sets(accel, cam, device, n: int, seed: int) -> dict:
+    """The four kinds of rays the render traces, n of each (a prefix of one
+    2^20 wavefront): primary camera rays at 512 x 512 x 4; secondary rays from
+    the primary hits, cosine-distributed about the shading normal; and
+    shadow rays from the hits, any hit, to the envmap (t_max 1e6) and to a
+    point light (finite t_max), each under a partial `active` mask."""
+    gen = root_generator(seed, device)
+    u = torch.rand((N_MAIN, 2), generator=gen, device=device) * (1.0 - 1e-7) + 1e-7
+    ro, rd, _ = generate_rays(cam.vectors.to(device), RENDER_RES, RENDER_RES, u, N_MAIN // RENDER_RES ** 2)
+    ro, rd = ro[:n].contiguous(), rd[:n].contiguous()
+    h = t8.intersect8(accel, ro, rd)
+    hit = h.t < 1e29
+    a = accel.attr_rows[h.prim]
+    w0 = (1.0 - h.u - h.v)[:, None]
+    nrm = w0 * a[:, 0:3] + h.u[:, None] * a[:, 3:6] + h.v[:, None] * a[:, 6:9]
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=-1, keepdim=True).clamp(min=1e-12)
+    nrm = torch.where((nrm * rd).sum(-1, keepdim=True) > 0, -nrm, nrm)
+    p = ro + rd * torch.where(hit, h.t, 0.0)[:, None] + 1e-3 * nrm
+    t, bt = make_frame(nrm)
+    d2 = to_world(nrm, t, bt, cosine_sample(torch.rand((n, 2), generator=gen, device=device))[0])
+    part = hit & (torch.rand(n, generator=gen, device=device) < 0.8)
+    light = torch.tensor([2.0, 4.0, 3.0], device=device)
+    dl = light - p
+    dist = torch.linalg.vector_norm(dl, dim=-1)
+    return {
+        "primary": (ro, rd, torch.full((n,), t8.INF, device=device), torch.ones(n, dtype=torch.bool, device=device),
+                    False),
+        "secondary": (p, d2, torch.full((n,), t8.INF, device=device), hit, False),
+        "shadow_env": (p, d2, torch.full((n,), 1e6, device=device), part, True),
+        "shadow_point": (p, dl / dist[:, None], dist - 2e-3, part, True),
+    }
+
+
+def check_traverse(accel, cam, device, n: int) -> dict:
+    """K5 against its plain walker on each ray set at n rays: t, prim, u, v
+    to the bit on >= 99.99% of rays, t within 1e-5 relative wherever both
+    hit, hit (or occluded) flags equal on >= 99.99%, no truncation."""
+    out = {}
+    for name, (ro, rd, t_max, act, any_hit) in k5_ray_sets(accel, cam, device, n, SEED + 5).items():
+        rs, ird = t8.safe_dir(rd)
+        args = (ro.contiguous(), rs.contiguous(), ird.contiguous(), t_max.contiguous(), act.contiguous(), any_hit)
+        tk, pk, uk, vk, nk = t8.traverse8(accel, *args)
+        tp, pp, up, vp, npl = t8.traverse8_plain(accel, *args)
+        torch.cuda.synchronize()
+        same = (tk == tp) & (pk == pp) & (uk == up) & (vk == vp)
+        thr = t_max * 0.9999 if any_hit else torch.full_like(t_max, 1e29)
+        flag_k, flag_p = act & (tk < thr), act & (tp < thr)
+        both = flag_k & flag_p
+        t_rel = float(((tk - tp).abs() / tp.abs().clamp(min=1e-30))[both].max()) if bool(both.any()) else 0.0
+        t_abs = float((tk - tp).abs()[both].max()) if bool(both.any()) else 0.0
+        r = {"rays": n, "active": int(act.sum()), "hits": int(flag_k.sum()), "differ": int((~same).sum()),
+             "flag_differ": int((flag_k != flag_p).sum()), "t_rel_max": t_rel, "t_abs_max": t_abs,
+             "truncated_kernel": int(nk), "truncated_plain": int(npl)}
+        log(f"  K5 {name:12s} vs plain: {r}")
+        require(r["differ"] <= 1e-4 * n, f"K5 {name}: t/prim/u/v differ from the plain walker on {r['differ']} rays")
+        require(r["flag_differ"] <= 1e-4 * n, f"K5 {name}: hit flags differ on {r['flag_differ']} rays")
+        require(t_rel <= 1e-5, f"K5 {name}: t differs by {t_rel:.3g} relative")
+        require(r["truncated_kernel"] == 0 and r["truncated_plain"] == 0, f"K5 {name}: truncated")
+        out[name] = r
+    return out
+
+
 def main_path(nb, device) -> dict:
     """Phase 5: bounces of sample -> pdf query at N_MAIN, counts around it."""
     gen = root_generator(SEED + 2, device)
@@ -287,13 +377,140 @@ def times(nb, device, name: str) -> dict:
     return out
 
 
+# K5's operations per test, counted as the kernel does them: a slab test is
+# 6 sub, 6 mul, 10 min/max and 3 compares; a Moller-Trumbore test is 27 mul,
+# 17 add/sub, 1 divide and 8 compares (min/max and compares count as fp32
+# operations).
+K5_BOX_OPS, K5_TRI_OPS = 25, 53
+K5_RAY_BYTES = 36 + 4 + 1 + 16  # ro, rd, 1/rd, t_max, active in; t, prim, u, v out
+
+
+def time_traverse(accel, cam, device, name: str) -> dict:
+    """K5, its plain walker and its bound on each ray set at N_MAIN, the
+    rays sorted by the render's own key as `render/integrator.py` traces
+    them. The bound counts the work the plain walker did on these rays."""
+    flops_peak, bytes_peak = next(v for k, v in PEAKS.items() if k in name)
+    out = {}
+    for set_name, (ro, rd, t_max, act, any_hit) in k5_ray_sets(accel, cam, device, N_MAIN, SEED + 7).items():
+        perm, _ = _sort_perm(_ray_sort_key(rd, act))
+        rs, ird = t8.safe_dir(rd[perm])
+        args = (ro[perm].contiguous(), rs.contiguous(), ird.contiguous(), t_max[perm].contiguous(),
+                act[perm].contiguous(), any_hit)
+        ms = cuda_ms(lambda: t8.traverse8(accel, *args))
+        plain_ms = cuda_ms(lambda: t8.traverse8_plain(accel, *args), runs=3, warmup=1)
+        st = t8.traverse8_plain(accel, *args, stats=True)[5]
+        ops = K5_BOX_OPS * st.box_tests + K5_TRI_OPS * st.tri_tests
+        nbytes = N_MAIN * K5_RAY_BYTES + accel.table.numel() * 4
+        out[set_name] = {"ms": ms, "plain_ms": plain_ms, "t_ops_ms": ops / flops_peak * 1e3,
+                         "t_bytes_ms": nbytes / bytes_peak * 1e3, "active": int(act.sum()),
+                         "mray_per_s": N_MAIN / ms / 1e3, **st._asdict(), "ops": ops, "bytes": nbytes}
+        log(f"time traverse8 {set_name}: {out[set_name]}")
+    tot = {k: sum(v[k] for v in out.values()) for k in ("ms", "plain_ms", "t_ops_ms", "t_bytes_ms")}
+    tot["bound_ms"] = max(tot["t_ops_ms"], tot["t_bytes_ms"])
+    tot["bound_by"] = "operations" if tot["t_ops_ms"] >= tot["t_bytes_ms"] else "bytes"
+    log(f"time traverse8, the four sets together: {tot}")
+    return tot
+
+
+def render_main_path(d: str, scene_path: str, weights: str, device) -> dict:
+    """The render through `cli/render.py` in both modes, counts around each."""
+    bounces = (RENDER_SPP // RENDER_CHUNK) * RENDER_DEPTH
+
+    def cli(mode, spp, depth, res):
+        return render_cli.main(["--scene", scene_path, "--bsdf-dir", d, "--material", "synthetic_rgb",
+                                "--mode", mode, "--checkpoint", weights, "--spp", str(spp),
+                                "--spp-chunk", str(RENDER_CHUNK), "--max-depth", str(depth), "--width", str(res),
+                                "--height", str(res), "--device", str(device), "--out", os.path.join(d, mode)])
+
+    for mode in ("gt", "neural-disk"):  # warm-up: CUDA module loading and the allocator's first blocks
+        cli(mode, RENDER_CHUNK, 2, RENDER_RES)
+    out = {}
+    for mode in ("gt", "neural-disk"):
+        fo.reset_launches()
+        t8.reset_launches()
+        img, dt = cli(mode, RENDER_SPP, RENDER_DEPTH, RENDER_RES)
+        counts = {**fo.launches, **t8.launches}
+        r = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * RENDER_SPP / dt / 1e6,
+             "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
+        log(f"render {mode}: {r}")
+        require(bool(np.isfinite(img).all()) and img.max() > 0, f"render {mode}: non-finite or black image")
+        require(counts["traverse8"] >= 2 * bounces, f"render {mode}: K5 launched {counts['traverse8']} times "
+                f"in {bounces} bounces")
+        if mode == "neural-disk":
+            require(counts["fused_sample_pdf_disk"] == bounces,
+                    f"render {mode}: K1 launched {counts['fused_sample_pdf_disk']} times in {bounces} bounces")
+        out[mode] = (img, r)
+    return out
+
+
+def pixel_materials(accel, cam, device) -> np.ndarray:
+    """(H, W) material id seen through each pixel's centre, -1 for the sky."""
+    u = torch.ones((RENDER_RES * RENDER_RES, 2), device=device)  # u = 1: no filter offset
+    ro, rd, _ = generate_rays(cam.vectors.to(device), RENDER_RES, RENDER_RES, u, 1)
+    h = t8.intersect8(accel, ro, rd)
+    mat = torch.where(h.t < 1e29, accel.attr_rows[h.prim, 15].to(torch.int64), -1)
+    return mat.reshape(RENDER_RES, RENDER_RES).cpu().numpy()
+
+
+def check_images(images: dict, mats: np.ndarray) -> dict:
+    ball, plane = mats == MAT_BALL, mats == MAT_PLANE
+    out = {}
+    for mode, (img, _) in images.items():
+        b, p = img[ball].mean(0), img[plane].mean(0)
+        out[mode] = {"ball_rgb": b.tolist(), "plane_rgb": p.tolist()}
+        require(float(np.abs(b - p).max()) > 0.01, f"render {mode}: the matball looks like the plane")
+    gt, nn = images["gt"][0], images["neural-disk"][0]
+    out["relmse_neural_vs_gt"] = float(np.mean((nn - gt) ** 2 / (gt ** 2 + 1e-2)))
+    out["ball_pixels"], out["plane_pixels"] = int(ball.sum()), int(plane.sum())
+    log(f"images: {out}")
+    return out
+
+
+def bounce_breakdown(scene, mb, device, depth: int = 1) -> dict:
+    """One neural-disk bounce at the render's 2^20-ray wavefront, timed by
+    stage with CUDA events (median of RUNS); `depth` bounces are run first
+    so the rays are the incoherent secondary ones."""
+    gen = root_generator(SEED + 6, device)
+    n = RENDER_RES * RENDER_RES * RENDER_CHUNK
+    state = _init_wavefront(scene.camera.vectors.to(device), torch.rand((n, 2), generator=gen, device=device)
+                            * (1 - 1e-7) + 1e-7, width=RENDER_RES, height=RENDER_RES, spp_chunk=RENDER_CHUNK)
+    for dd in range(depth):
+        state, _ = _bounce_body(scene.accel, scene.envmap, scene.lights, state, draw_bounce(gen, n, (mb,)), dd,
+                                matball=(mb,))
+    rnd = draw_bounce(gen, n, (mb,))
+    stages = []
+    for it in range(RUNS + 2):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        _bounce_body(scene.accel, scene.envmap, scene.lights, state, rnd, depth, matball=(mb,), mark=mark)
+        torch.cuda.synchronize()
+        if it >= 2:
+            stages.append({b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks[:-1], marks[1:])})
+    med = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
+    med["bounce"] = sum(med.values())
+    med["alive_in"] = int(state[5].sum())
+    log(f"bounce breakdown at depth {depth}, n={n}, ms: {med}")
+    return med
+
+
 KERNELS = {
     "fused_sample_pdf_disk": ("K1 disk sample+pdf",
                               "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:579 _fused_sample_pdf_kernel "
                               "(pallas_call :684)"),
     "fused_pdf_disk": ("K2 disk pdf query",
                        "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:943 _fused_pdf_kernel (pallas_call :1017)"),
+    "traverse8": ("K5 BVH traversal, closest and any hit",
+                  "bsdf_diffusion_sampling_tpu/render/traverse8.py:251 _traverse_kernel + :63 _turn "
+                  "(pallas_call :383)"),
 }
+SOURCES = {"fused_sample_pdf_disk": "fused_ode.cu", "fused_pdf_disk": "fused_ode.cu",
+           "traverse8": "traverse8.cu"}
 
 
 def main() -> int:
@@ -307,7 +524,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     t0 = time.time()
-    libs = cuda_build.build(["fused_ode.cu"])
+    libs = cuda_build.build(["fused_ode.cu", "traverse8.cu"])
     log(f"[1] build: {time.time() - t0:.1f} s")
     for src, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -323,10 +540,14 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
 
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "disk.npz")
-        tree = init_weights(SEED)
-        save_pytree(path, tree, step=1)
-        back, step = load_pytree(path)
+        return run(args, d, device, smi, name, t_start)
+
+
+def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
+    weights = os.path.join(d, "disk.npz")
+    tree = init_weights(SEED)
+    save_pytree(weights, tree, step=1)
+    back, step = load_pytree(weights)
     require(step == 1 and all(np.array_equal(a["w"], b["w"]) for a, b in zip(tree["rectified"], back["rectified"])),
             "checkpoint round trip changed the weights")
     nb = make_neural_bsdf("disk", ModelConfig(), back["rectified"], back["base"], sampler_cfg=SamplerConfig(),
@@ -339,31 +560,59 @@ def main() -> int:
     for n in (N_MAIN, N_RAGGED):
         for k, e in check_kernels(nb, device, n).items():
             errs[k] = {m: max(v, errs.get(k, {}).get(m, 0.0)) for m, v in e.items()}
-    log(f"[4] kernels vs plain at n = {N_MAIN} and {N_RAGGED}: ok {errs} ({time.time() - t0:.1f} s)")
+    log(f"[4] K1, K2 vs plain at n = {N_MAIN} and {N_RAGGED}: ok {errs} ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    scene_path = write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=RENDER_SPP, max_depth=RENDER_DEPTH)
+    scene = load_scene(scene_path, device=device)
+    log(f"[5] scene: {scene.accel.attr_rows.shape[0]} triangles, {scene.accel.n_rows} table rows "
+        f"({scene.accel.table.numel() * 4 / 1e6:.2f} MB), 8-wide depth {scene.accel.max_depth}, "
+        f"envmap {tuple(scene.envmap.data.shape)} ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    k5 = [r for n in (N_MAIN, N_RAGGED) for r in check_traverse(scene.accel, scene.camera, device, n).values()]
+    log(f"[6] K5 vs plain walker at n = {N_MAIN} and {N_RAGGED}: ok ({time.time() - t0:.1f} s)")
     if args.check_only:
         return 0
 
     t0 = time.time()
     counts = main_path(nb, device)
-    log(f"[5] main path: {BOUNCES} bounces at N={N_MAIN}: ok ({time.time() - t0:.1f} s)")
+    log(f"[7] sampler path: {BOUNCES} bounces of neural_sample -> neural_pdf at N={N_MAIN}: ok "
+        f"({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    images = render_main_path(d, scene_path, weights, device)
+    check_images(images, pixel_materials(scene.accel, scene.camera, device))
+    render_counts = images["neural-disk"][1]["launches"]
+    log(f"[8] render path: cli/render.py at {RENDER_RES}x{RENDER_RES}, {RENDER_SPP} spp, depth {RENDER_DEPTH}, "
+        f"gt and neural-disk: ok ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
     tm = times(nb, device, name)
-    log(f"[6] times: ({time.time() - t0:.1f} s)")
+    tm["traverse8"] = time_traverse(scene.accel, scene.camera, device, name)
+    mb = render_cli.build_matball({"filename": "synthetic_rgb", "idx": -1},
+                                  argparse.Namespace(bsdf_dir=d, mode="neural-disk", checkpoint=weights), device)
+    bounce_breakdown(scene, mb, device)
+    log(f"[9] times: ({time.time() - t0:.1f} s)")
 
-    # max_abs_err: x and x0 against the plain version; max_rel_err: the pdf.
-    # Both are the larger of the checks at n and n_ragged rows.
+    # launches: K1 and K5 from the render (this slice's main path), K2 from
+    # the sampler path, the one that runs it. max_abs_err: x and x0 for K1
+    # and K2, t for K5 (wherever both hit); max_rel_err: the pdf for K1 and
+    # K2, t for K5.
+    launches = {"fused_sample_pdf_disk": render_counts["fused_sample_pdf_disk"],
+                "fused_pdf_disk": counts["fused_pdf_disk"], "traverse8": render_counts["traverse8"]}
+    errs["traverse8"] = {"max_abs_err": max(r["t_abs_max"] for r in k5),
+                         "max_rel_err": max(r["t_rel_max"] for r in k5)}
     rows = []
     for k, (label, replaces) in KERNELS.items():
         r = tm[k]
         rows.append({"name": k, "label": label, "route": "cuda",
-                     "source": "bsdf_diffusion_sampling_tpu_torch/csrc/fused_ode.cu", "replaces": replaces,
-                     "launches": counts[k], "max_abs_err": errs[k]["max_abs_err"],
+                     "source": f"bsdf_diffusion_sampling_tpu_torch/csrc/{SOURCES[k]}", "replaces": replaces,
+                     "launches": launches[k], "max_abs_err": errs[k]["max_abs_err"],
                      "max_rel_err": errs[k]["max_rel_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-                     "meval_per_s": r["meval_per_s"], "n": N_MAIN, "n_ragged": N_RAGGED, "T": nb.T})
+                     "n": N_MAIN, "n_ragged": N_RAGGED})
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
-    log(f"[7] total {time.time() - t_start:.1f} s")
+    log(f"[10] total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

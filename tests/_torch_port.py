@@ -40,6 +40,47 @@ def disk_setup(n: int = 256, seed: int = 0) -> SimpleNamespace:
         t_cond=t_encode_condition(tt(omega), cfg), rng=rng, n=n)
 
 
+def soups(meshes, mids):
+    """The same meshes as a JAX soup and as a port soup."""
+    from bsdf_diffusion_sampling_tpu.render import mesh as jmesh
+    from bsdf_diffusion_sampling_tpu_torch.render import mesh as tmesh
+
+    jm = [jmesh.Mesh(m.positions, m.normals, m.uvs, m.faces) for m in meshes]
+    return jmesh.build_soup(jm, mids), tmesh.build_soup(meshes, mids)
+
+
+def sphere_on_plane():
+    """A small matball scene: a UV sphere (material 2) resting on a grid
+    plane (material 0), as meshes."""
+    from bsdf_diffusion_sampling_tpu_torch.render.mesh import transform_mesh
+    from bsdf_diffusion_sampling_tpu_torch.render.procedural import plane_grid, uv_sphere
+
+    lift = np.eye(4)
+    lift[1, 3] = 1.0
+    return [plane_grid(4, 3.0), transform_mesh(uv_sphere(10, 14), lift)], [0, 2]
+
+
+def random_meshes(rng: np.random.Generator, n_tris: int = 300):
+    """A soup of small random triangles in a unit box, no normals or uvs."""
+    from bsdf_diffusion_sampling_tpu_torch.render.mesh import Mesh
+
+    v0 = rng.uniform(-1, 1, (n_tris, 3))
+    pos = np.concatenate([v0, v0 + rng.normal(0, 0.15, (n_tris, 3)), v0 + rng.normal(0, 0.15, (n_tris, 3))])
+    faces = np.stack([np.arange(n_tris), np.arange(n_tris) + n_tris, np.arange(n_tris) + 2 * n_tris], -1)
+    return [Mesh(pos.astype(np.float32), None, None, faces.astype(np.int32))], [0]
+
+
+def write_synthetic_bsdf(path: str, seed: int = 0, **kw) -> dict:
+    """Write a synthesized isotropic RGL tensor file with the port's writer;
+    returns the tensors."""
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.tensorfile import write_tensor_file
+    from bsdf_diffusion_sampling_tpu_torch.render.procedural import synthetic_measured_tensors
+
+    tf = synthetic_measured_tensors(seed, **kw)
+    write_tensor_file(path, tf)
+    return tf
+
+
 def hemisphere(rng: np.random.Generator, n: int) -> np.ndarray:
     """Local directions with cos(theta) in [0.1, 0.95]."""
     u = rng.random((n, 2), dtype=np.float32)

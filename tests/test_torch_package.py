@@ -22,24 +22,35 @@ PORT_DIR = Path(port.__file__).resolve().parent
 REPO = PORT_DIR.parent
 
 
+RENDER_SLICE = ["native.bvhlib", "native.exr", "render.mesh", "render.bvh8", "render.traverse8",
+                "bsdf.tensorfile", "bsdf.marginal2d", "bsdf.measured", "render.lambert", "render.camera",
+                "render.envmap", "render.scene", "render.integrator", "render.procedural", "cli.render"]
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, importlib, pkgutil, bsdf_diffusion_sampling_tpu_torch as p\n"
+            "seen = []\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "    seen.append(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m.split('.')[0] == 'bsdf_diffusion_sampling_tpu']\n"
-            "print(sorted(bad))\n")
+            "print(sorted(bad))\n"
+            "print(' '.join(seen))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "[]", out.stdout
+    bad, seen = out.stdout.strip().splitlines()
+    assert bad == "[]", bad
+    # the render slice's modules are among those imported
+    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}" for m in RENDER_SLICE} <= set(seen.split())
 
 
 def test_no_source_names_the_jax_package():
     names_pkg = re.compile(r"bsdf_diffusion_sampling_tpu(?!_torch)")
     imports_jax = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     sources = [p for p in PORT_DIR.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
-    assert len(sources) >= 12
+    assert len(sources) >= 27
     for p in sources:
         text = p.read_text()
         assert not names_pkg.search(text), p
@@ -89,6 +100,26 @@ def test_make_neural_bsdf_defaults_to_the_card():
         make_neural_bsdf("disk", tcfg.ModelConfig(), [], {})
 
 
+@pytest.mark.parametrize("entry", ["load_measured", "measured_from_tensors", "load_scene", "build_scene",
+                                   "render"])
+def test_loaders_and_render_default_to_the_card(entry):
+    """The BRDF and scene loaders and `render()` put their tables on the
+    card unless asked for the CPU, so what they return fits together; the
+    default raises here, before any file is read."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bsdf_diffusion_sampling_tpu_torch.bsdf import measured
+    from bsdf_diffusion_sampling_tpu_torch.render import integrator, scene
+
+    call = {"load_measured": lambda: measured.load_measured("absent.bsdf"),
+            "measured_from_tensors": lambda: measured.measured_from_tensors({"phi_i": [0.0], "theta_i": [0.0]}),
+            "load_scene": lambda: scene.load_scene("absent.xml"),
+            "build_scene": lambda: scene.build_scene(None),
+            "render": lambda: integrator.render(None, None)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
 def test_kernel_library_is_keyed_by_source_and_not_built_at_import():
     p = cuda_build.library_path("fused_ode.cu")
     assert p == cuda_build.library_path("fused_ode.cu")
@@ -96,3 +127,7 @@ def test_kernel_library_is_keyed_by_source_and_not_built_at_import():
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
     assert not cuda_build._libs  # importing the port loaded no library
+    assert cuda_build.library_path("traverse8.cu").name.startswith("traverse8-")
+    # host C++ goes through the same build path, with g++'s flags
+    assert cuda_build.library_path("bvh_build.cpp").name.startswith("bvh_build-")
+    assert cuda_build._flags("bvh_build.cpp") == cuda_build.HOST_FLAGS

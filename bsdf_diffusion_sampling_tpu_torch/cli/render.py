@@ -1,18 +1,24 @@
 """Render CLI, counterpart of the JAX package's `cli/render.py`.
 
-Loads a matpreview-style scene, installs the matball material (ground-truth
-measured sampling, or a neural disk sampler from a checkpoint), renders spp
+Loads a matpreview-style scene, installs the matball material, renders spp
 samples in accumulation passes on the card (or the CPU with
-`--device cpu`), writes EXR + PNG and prints the wall-clock time.
+`--device cpu`), writes EXR + PNG and prints the wall-clock time. The
+matball is a measured BRDF (`scene_measured.xml`: `--mode gt` samples the
+measured BRDF itself, `neural-disk` and `neural-spherical` a trained
+sampler from `--checkpoint`) or a material-table entry with an albedo tint
+(`scene_bsdf.xml`: `gt` samples a two-sided cosine lobe, `neural-sphere` the
+trained full-sphere sampler).
 
   python -m bsdf_diffusion_sampling_tpu_torch.cli.render \\
       --scene scene_measured.xml --bsdf-dir bsdfs --material chm_mint_rgb --mode gt --out out/gt
   python -m bsdf_diffusion_sampling_tpu_torch.cli.render \\
       --scene scene_measured.xml --bsdf-dir bsdfs --material chm_mint_rgb --mode neural-disk \\
       --checkpoint checkpoints/chm_mint_disk/final.npz --out out/nn
+  python -m bsdf_diffusion_sampling_tpu_torch.cli.render \\
+      --scene scene_bsdf.xml --mode neural-sphere --checkpoint bsdf_20_sphere.npz --out out/sphere
 
-The spherical modes, `--weights reference` and `--allow-substitute` of the
-JAX CLI are not ported yet.
+`--weights reference` and `--allow-substitute` of the JAX CLI are not
+ported: the reference checkpoints and RGL files are not in the repository.
 """
 
 from __future__ import annotations
@@ -26,14 +32,17 @@ import zlib
 import numpy as np
 
 
+MODES = {"gt": None, "neural-disk": "disk", "neural-spherical": "spherical", "neural-sphere": "sphere_full"}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scene", required=True, help="a matpreview-style scene XML")
     p.add_argument("--material", default="chm_mint_rgb", help="the matball's <material>.bsdf file")
-    p.add_argument("--bsdf-dir", required=True, help="the directory of the .bsdf files")
-    p.add_argument("--mode", choices=["gt", "neural-disk"], default="gt",
-                   help="gt: measured sampling; neural-disk: the trained disk sampler")
-    p.add_argument("--checkpoint", default="", help="an .npz checkpoint (neural-disk)")
+    p.add_argument("--bsdf-dir", default="", help="the directory of the .bsdf files (measured matballs)")
+    p.add_argument("--mode", choices=list(MODES), default="gt",
+                   help="gt: the material samples itself; neural-*: the trained sampler of that domain")
+    p.add_argument("--checkpoint", default="", help="an .npz checkpoint (neural modes)")
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--spp-chunk", type=int, default=4)
     p.add_argument("--max-depth", type=int, default=12)
@@ -64,27 +73,45 @@ def write_png(path: str, rgb8: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
 
 
-def build_matball(ball: dict, args, device):
-    """One MatballFns for the scene's measured mybsdf hook."""
-    from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import load_measured
-    from bsdf_diffusion_sampling_tpu_torch.render.integrator import measured_matball, neural_matball
-
-    if ball["idx"] >= 0:
-        raise NotImplementedError("material-table (principled) matballs are not ported yet")
-    brdf = load_measured(os.path.join(args.bsdf_dir, ball["filename"] + ".bsdf"), device=device)
-    if args.mode == "gt":
-        return measured_matball(brdf)
-
+def model_cfg(domain: str):
+    """The rendered net's config: disk 3 x 32, spherical 4 x 32 (the 6 x 64
+    spherical teacher is used in training only)."""
     from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig
+
+    if domain == "disk":
+        return ModelConfig(domain="disk")
+    return ModelConfig(domain=domain, velocity_hidden=32, velocity_layers=4)
+
+
+def build_matball(ball: dict, args, device):
+    """One MatballFns for one mybsdf hook: a measured BRDF (idx < 0) or a
+    material-table entry with its albedo."""
+    from bsdf_diffusion_sampling_tpu_torch.render import integrator
+
+    domain = MODES[args.mode]
+    table = ball["idx"] >= 0
+    if domain is not None and table != (domain == "sphere_full"):
+        raise ValueError(f"--mode {args.mode} renders a {'measured' if table else 'material-table'} matball; "
+                         f"this scene's is a {'material-table' if table else 'measured'} one")
+    if table:
+        from bsdf_diffusion_sampling_tpu_torch.bsdf.materials import BSDF_MATERIALS
+
+        mat, albedo, brdf = BSDF_MATERIALS[ball["idx"]], ball["albedo"], None
+    else:
+        from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import load_measured
+
+        brdf = load_measured(os.path.join(args.bsdf_dir, ball["filename"] + ".bsdf"), device=device)
+    if domain is None:
+        return integrator.principled_matball(mat, albedo, device=device) if table else integrator.measured_matball(brdf)
+
     from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf
     from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree
 
     if not args.checkpoint:
-        raise ValueError("--mode neural-disk needs --checkpoint")
+        raise ValueError(f"--mode {args.mode} needs --checkpoint")
     params, _ = load_pytree(args.checkpoint)
-    nb = make_neural_bsdf("disk", ModelConfig(domain="disk"), params["rectified"], params["base"], brdf,
-                          device=device)
-    return neural_matball(nb)
+    nb = make_neural_bsdf(domain, model_cfg(domain), params["rectified"], params["base"], brdf, device=device)
+    return integrator.neural_matball_sphere(nb, mat, albedo) if table else integrator.neural_matball(nb)
 
 
 def main(argv=None):

@@ -1,0 +1,170 @@
+// Fused spherical sample+pdf kernel (K4) for Hopper.
+//
+// Replaces the JAX package's `ops/fused_ode.py::_fused_sample_pdf_sph_kernel`
+// (pallas_call at :1534) with `_spherical_ode_loop` and `_log_i0_lanes`. Per
+// sample: the base heads (loc_theta, log_scale, loc_phi, softplus(conc) +
+// 1e-3) over cond_enc[:, :14]; theta0 = loc_theta + eps_g (exp(log_scale) +
+// 1e-3) with eps_g Gaussian; phi0 von Mises by Best-Fisher rejection, 16
+// fixed rounds, the first accepted one kept (round 0's angle if none is, as
+// the JAX package's XLA sampler does), wrapped to [-pi, pi) by a floor mod;
+// log p0 = Gaussian(theta0), normalised by -log_scale (the trained quirk), +
+// von Mises(phi0) with the A&S log I0; T forward Euler steps on the encoded
+// state (theta, sin phi, cos phi) with carried tangents; pdf = p0 / det.
+//
+// The draw is given (eps (N, 2) = (eps_g, phi0)) or made in-kernel from a
+// 64-bit seed: Philox4x32-10 keyed by the seed on counters (i, 0, j, 0), j =
+// 0..12, gives 52 words a sample, of which words 0, 1 feed Box-Muller for
+// eps_g and words 2 + 3r + (0, 1, 2) the three uniforms of Best-Fisher round
+// r, each clipped to [1e-7, 1 - 1e-7] (`ops/fused_ode.py::philox_spherical_draws`
+// reproduces the stream in numpy).
+//
+// Bound: operations. At width 32 and 4 hidden layers a sample takes ~78k
+// fp32 multiply-adds at T = 8 (3,264 primal and 2 x 3,232 tangent a step)
+// against 36 bytes in and 20 out. The design is K1's: one thread a sample,
+// weights in shared memory read as broadcasts, the condition's part of layer
+// 0 computed once a sample, state and tangents in registers, one det at the
+// end. No tensor cores.
+
+#include "ode_mlp.cuh"
+
+namespace {
+
+using namespace ode;
+constexpr int H = 32, NL = 4, XE = 3;
+using N = Net<H, NL, XE>;
+constexpr float EPS_SPH = 1e-3f;  // base_density._EPS_SPHERICAL
+constexpr int VM_ROUNDS = 16;
+constexpr int WORDS = 2 + 3 * VM_ROUNDS;    // Box-Muller pair + 16 rounds of 3
+constexpr int BLOCKS = (WORDS + 3) / 4;     // Philox blocks a sample
+constexpr int SMEM_FLOATS = N::TOTAL + H * BLOCK;
+
+// A&S 9.8.1 / 9.8.2 (models/von_mises.py)
+__device__ __forceinline__ float log_i0(float x) {
+  const float I0_SMALL[7] = {1.0f, 3.5156229f, 3.0899424f, 1.2067492f, 0.2659732f, 0.0360768f, 0.0045813f};
+  const float I0_LARGE[9] = {0.39894228f, 0.01328592f, 0.00225319f, -0.00157565f, 0.00916281f,
+                             -0.02057706f, 0.02635537f, -0.01647633f, 0.00392377f};
+  x = fabsf(x);
+  const float q = x / 3.75f;
+  const float ts = q * q;
+  float ps = 0.0f;
+#pragma unroll
+  for (int k = 6; k >= 0; --k) ps = ps * ts + I0_SMALL[k];
+  const float xs = fmaxf(x, 1e-6f);
+  const float tl = 3.75f / xs;
+  float pl = 0.0f;
+#pragma unroll
+  for (int k = 8; k >= 0; --k) pl = pl * tl + I0_LARGE[k];
+  return x <= 3.75f ? logf(ps) : xs - 0.5f * logf(xs) + logf(pl);
+}
+
+// torch's softplus (beta 1, threshold 20)
+__device__ __forceinline__ float softplus(float x) { return x > 20.0f ? x : log1pf(expf(x)); }
+
+// Floor mod, the sign of the result that of b, as torch.remainder and
+// jnp.mod take it (fmodf alone truncates toward zero).
+__device__ __forceinline__ float floor_mod(float a, float b) {
+  float r = fmodf(a, b);
+  if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
+  return r;
+}
+
+__device__ __forceinline__ float clip_u(uint32_t w) { return fminf(fmaxf(unit24(w), 1e-7f), 1.0f - 1e-7f); }
+
+// Best-Fisher von Mises draw on the words of one sample (models/von_mises.py).
+__device__ __forceinline__ float von_mises(const uint32_t (&wd)[4 * BLOCKS], float loc, float conc) {
+  const float kappa = fmaxf(conc, 1e-12f);
+  const float tau = 1.0f + sqrtf(1.0f + 4.0f * kappa * kappa);
+  const float rho = (tau - sqrtf(2.0f * tau)) / (2.0f * kappa);
+  const float r = (1.0f + rho * rho) / (2.0f * rho);
+  float sel = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VM_ROUNDS; ++k) {
+    const float u0 = clip_u(wd[2 + 3 * k]), u1 = clip_u(wd[3 + 3 * k]), u2 = clip_u(wd[4 + 3 * k]);
+    const float z = cosf(PI * u0);
+    const float f = (1.0f + r * z) / (r + z);
+    const float c = kappa * (r - f);
+    const bool accept = (c * (2.0f - c) - u1 > 0.0f) || (logf(c / u1) + 1.0f - c >= 0.0f);
+    const float sgn = (float)((u2 > 0.5f) - (u2 < 0.5f));  // jnp.sign(u2 - 0.5)
+    if (k == 0 || accept) sel = sgn * acosf(fminf(fmaxf(f, -1.0f), 1.0f));
+    if (accept) break;
+  }
+  if (kappa < 1e-6f) return clip_u(wd[2]) * 2.0f * PI - PI;  // uniform on the circle
+  return floor_mod(sel + loc + PI, TWO_PI) - PI;
+}
+
+template <bool PRNG>
+__global__ void __launch_bounds__(BLOCK)
+    sample_pdf_sph_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
+                          const long long* __restrict__ seed, const float* __restrict__ w,
+                          float* __restrict__ x_out, float* __restrict__ pdf_out, float* __restrict__ x0_out,
+                          int n, int T) {
+  extern __shared__ __align__(16) float smem[];
+  float* sw = smem;
+  float* scp = smem + N::TOTAL;
+  stage_weights(sw, w, N::TOTAL);
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+
+  float c[CD];
+#pragma unroll
+  for (int k = 0; k < CD; ++k) c[k] = cond[(size_t)i * CD + k];
+  float* cp = scp + threadIdx.x;
+  cond_proj<H, XE>(sw, c, cp);
+  const uint32_t sa = (uint32_t)__cvta_generic_to_shared(sw);
+  const uint32_t ca = (uint32_t)__cvta_generic_to_shared(cp);
+  float o[4];
+  base_heads(sw + N::VEL, c, o);
+  const float loc_t = o[0], ls = o[1], loc_p = o[2], conc = softplus(o[3]) + EPS_SPH;
+
+  float eps_g, phi0;
+  if (PRNG) {
+    const uint64_t s = (uint64_t)seed[0];
+    uint32_t wd[4 * BLOCKS];
+#pragma unroll
+    for (int b = 0; b < BLOCKS; ++b) {
+      uint32_t ctr[4] = {(uint32_t)i, 0u, (uint32_t)b, 0u};
+      philox4x32_10(ctr, (uint32_t)s, (uint32_t)(s >> 32));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wd[4 * b + q] = ctr[q];
+    }
+    eps_g = box_muller(wd[0], wd[1]);
+    phi0 = von_mises(wd, loc_p, conc);
+  } else {
+    eps_g = eps[2 * (size_t)i];
+    phi0 = eps[2 * (size_t)i + 1];
+  }
+  const float theta0 = loc_t + eps_g * (expf(ls) + EPS_SPH);
+  const float kap = fmaxf(conc, 1e-12f);
+  const float log_p0 = -0.5f * LOG_2PI - ls - 0.5f * eps_g * eps_g + kap * cosf(phi0 - loc_p) - LOG_2PI -
+                       log_i0(kap);
+
+  float s0 = theta0, s1 = phi0, det;
+  transport<H, NL, XE, true>(sa, ca, s0, s1, T, false, det);
+  x_out[2 * (size_t)i] = s0;
+  x_out[2 * (size_t)i + 1] = s1;
+  pdf_out[i] = expf(log_p0) / det;
+  x0_out[2 * (size_t)i] = theta0;
+  x0_out[2 * (size_t)i + 1] = phi0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Widths other than (hidden 32, 4 hidden layers) are refused with
+// cudaErrorInvalidValue; the Python wrapper checks first.
+int bsdf_fused_sample_pdf_spherical(const float* cond, const float* eps, const long long* seed, const float* w,
+                                    float* x, float* pdf, float* x0, int n, int T, int hidden, int layers,
+                                    void* stream) {
+  if (hidden != H || layers != NL || n <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = SMEM_FLOATS * sizeof(float);
+  if (eps != nullptr) {
+    sample_pdf_sph_kernel<false><<<blocks_for(n), BLOCK, smem, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+  } else {
+    sample_pdf_sph_kernel<true><<<blocks_for(n), BLOCK, smem, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

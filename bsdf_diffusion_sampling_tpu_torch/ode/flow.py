@@ -87,6 +87,19 @@ def transport_with_det(
     return x, det_acc
 
 
+def transport(
+    domain: str, v_params: List[dict], x: torch.Tensor, cond_enc: torch.Tensor,
+    T: int, reverse: bool = False,
+) -> torch.Tensor:
+    """`transport_with_det` without the det: T Euler steps of the velocity."""
+    h = 1.0 / T
+    sign = -1.0 if reverse else 1.0
+    for t in range(T):
+        alpha = 1.0 - t * h if reverse else t * h
+        x = x + sign * h * _velocity(domain, v_params, x, alpha, cond_enc)
+    return x
+
+
 def newton_inverse(
     domain: str, v_params: List[dict], y: torch.Tensor, cond_enc: torch.Tensor,
     T: int, newton_iters: int = 2,
@@ -130,9 +143,9 @@ def ode_sample(
     eps=None,
     x0: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Draw x ~ p1(.|omega_i) and its exact pdf: x0 ~ base (from `eps`, an
-    (N, 2) tensor of standard normals or a `torch.Generator`, or a given
-    `x0`), T Euler steps, pdf = p0(x0) / prod_t det(I + J_t/T)."""
+    """Draw x ~ p1(.|omega_i) and its exact pdf: x0 ~ base (from `eps`, the
+    draw `get_base(domain).sample` takes, or a given `x0`), T Euler steps,
+    pdf = p0(x0) / prod_t det(I + J_t/T)."""
     if (eps is None) == (x0 is None):
         raise ValueError("pass exactly one of eps and x0")
     base = get_base(domain)
@@ -165,11 +178,7 @@ def ode_sample_only(
     T: int,
 ) -> torch.Tensor:
     """pdf-free T-step transport of given base samples."""
-    h = 1.0 / T
-    x = x0
-    for t in range(T):
-        x = x + h * _velocity(domain, v_params, x, t * h, cond_enc)
-    return x
+    return transport(domain, v_params, x0, cond_enc, T)
 
 
 def ode_pdf_exact(

@@ -5,7 +5,8 @@ Each `csrc/*.cu` file is compiled on first use with `nvcc` for Hopper
 loads; each host `csrc/*.cpp` file (the BVH builder) is compiled the same way
 with `g++`. Libraries go to `_build/` inside the package, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built when a module is imported.
+reused; the key of a `.cu` library also covers the shared headers
+(`csrc/*.cuh`). Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -47,9 +48,13 @@ def _flags(source: str) -> Tuple[str, ...]:
 
 
 def library_path(source: str) -> Path:
-    """Where the library of `csrc/<source>` goes, keyed by content and flags."""
+    """Where the library of `csrc/<source>` goes, keyed by content (the
+    source's and, for CUDA, the headers') and flags."""
     h = hashlib.sha256(" ".join(_flags(source)).encode())
     h.update((CSRC / source).read_bytes())
+    if source.endswith(".cu"):
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 

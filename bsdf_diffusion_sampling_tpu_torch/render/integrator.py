@@ -10,8 +10,11 @@ power heuristic, and Russian roulette from depth RR_DEPTH. The film is a
 scatter-free segment sum over the sample-major ray layout.
 
 The matball material is pluggable (`MatballFns`): ground-truth measured
-RGL importance sampling, or the neural ODE sampler, through the identical
-integrator. A bounce takes its random numbers as explicit tensors
+RGL importance sampling, the neural ODE sampler (disk, spherical), the
+analytic principled table material with a two-sided cosine sampler, or the
+full-sphere neural sampler over that material, through the identical
+integrator. A transmissive matball lets NEE and BSDF-sampled directions go
+below its surface. A bounce takes its random numbers as explicit tensors
 (`BounceRandoms`, drawn by `draw_bounce` from one `torch.Generator`), so a
 test can hand it the very draws the JAX package makes from its keys.
 
@@ -22,6 +25,7 @@ the multi-device slice.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -51,13 +55,16 @@ GRAY = 0.18  # `scene_measured.xml:46`
 
 
 class MatballFns(NamedTuple):
-    """Local-frame material callbacks for one preview object."""
+    """Local-frame material callbacks for one preview object. The MIS pdf
+    comes from `eval_pdf` where it is given, else from `eval` and `pdf`."""
 
     draw: Callable  # (generator, n) -> the randoms one bounce's sample() takes
     sample: Callable  # (randoms, wi_local) -> (wo_local, pdf)
     eval: Callable  # (wi_local, wo_local) -> (N, 3) f*cos
-    eval_pdf: Callable  # (wi_local, wo_local) -> ((N, 3) f*cos, (N,) the MIS pdf)
     weight_filter: Callable  # (rgb_weight) -> rgb_weight (firefly policy)
+    pdf: Callable | None = None  # (wi_local, wo_local) -> (N,)
+    eval_pdf: Callable | None = None  # (wi_local, wo_local) -> ((N, 3) f*cos, (N,) the MIS pdf)
+    transmissive: bool = False  # a full-sphere BSDF: wo may go below the surface
 
 
 class BounceRandoms(NamedTuple):
@@ -144,11 +151,14 @@ def _shade_eval(matballs: tuple, mat_id, uv, wi_l, wo_l):
 
 def _shade_eval_pdf(matballs: tuple, mat_id, uv, wi_l, wo_l):
     """(f*cos, pdf) for all materials, each matball's from its fused
-    eval_pdf."""
+    eval_pdf where it has one."""
     f = diffuse_eval(_albedo(mat_id, uv), wo_l)
     pdf = diffuse_pdf(wo_l)
     for i, mb in enumerate(matballs):
-        fb, pb = mb.eval_pdf(wi_l, wo_l)
+        if mb.eval_pdf is not None:
+            fb, pb = mb.eval_pdf(wi_l, wo_l)
+        else:
+            fb, pb = mb.eval(wi_l, wo_l), mb.pdf(wi_l, wo_l)
         is_b = mat_id == MAT_BALL + i
         f = torch.where(is_b[..., None], fb, f)
         pdf = torch.where(is_b, pb, pdf)
@@ -163,6 +173,14 @@ def _shade_sample(matballs: tuple, rnd: BounceRandoms, mat_id, wi_l):
         wo = torch.where(is_b[..., None], wo_b, wo)
         pdf = torch.where(is_b, pdf_b, pdf)
     return wo, pdf
+
+
+def _transmissive_mask(matballs: tuple, mat_id):
+    m = torch.zeros(mat_id.shape, dtype=torch.bool, device=mat_id.device)
+    for i, mb in enumerate(matballs):
+        if mb.transmissive:
+            m = m | (mat_id == MAT_BALL + i)
+    return m
 
 
 def _ball_filter(matballs: tuple, mat_id, w_rgb):
@@ -209,6 +227,7 @@ def _bounce_body(accel: BVH8, env: EnvMap, lights: torch.Tensor, state, rnd: Bou
     t, bt = make_frame(n_sh)
     wi_l = to_local(n_sh, t, bt, -rd)
     alive = alive & (wi_l[..., 2] > 0)
+    trans_mask = _transmissive_mask(matballs, mat_id)
     mark("env_hit_and_surface")
 
     def offset(wo_local):
@@ -220,7 +239,7 @@ def _bounce_body(accel: BVH8, env: EnvMap, lights: torch.Tensor, state, rnd: Bou
     mark("nee_env_sample")
     wo_nee_l = to_local(n_sh, t, bt, d_env)
     f_nee, pdf_b_at_nee = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_nee_l)
-    nee_cand = alive & (pdf_e > 1e-9) & (wo_nee_l[..., 2] > 0)
+    nee_cand = alive & (pdf_e > 1e-9) & ((wo_nee_l[..., 2] > 0) | trans_mask)
     mark("nee_eval_pdf")
     occ, tr = _occl(accel, offset(wo_nee_l), d_env, torch.full((n,), 1e6, device=ro.device), nee_cand)
     truncated = truncated | tr
@@ -238,7 +257,7 @@ def _bounce_body(accel: BVH8, env: EnvMap, lights: torch.Tensor, state, rnd: Bou
         d_l = dvec / dist[..., None]
         wo_light_l = to_local(n_sh, t, bt, d_l)
         f_l = _shade_eval(matballs, mat_id, uv, wi_l, wo_light_l)
-        cand = alive & (wo_light_l[..., 2] > 0)
+        cand = alive & ((wo_light_l[..., 2] > 0) | trans_mask)
         occ_l, tr = _occl(accel, offset(wo_light_l), d_l, dist - 2 * RAY_EPS, cand)
         truncated = truncated | tr
         contrib_l = beta * f_l * (inten[None, :] / (dist * dist)[..., None])
@@ -255,7 +274,7 @@ def _bounce_body(accel: BVH8, env: EnvMap, lights: torch.Tensor, state, rnd: Bou
     f_b, pdf_mis = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_l)
     mark("bsdf_eval_pdf")
     is_ball = mat_id >= MAT_BALL
-    ok = alive & (pdf_b > 1e-9) & (wo_l[..., 2] > 0)
+    ok = alive & (pdf_b > 1e-9) & ((wo_l[..., 2] > 0) | trans_mask)
     w_rgb = f_b / torch.clamp(pdf_b, min=1e-9)[..., None]
     w_rgb = torch.where(is_ball[..., None], _ball_filter(matballs, mat_id, w_rgb), w_rgb)
     beta = torch.where(ok[..., None], beta * w_rgb, beta)
@@ -343,23 +362,19 @@ def measured_matball(brdf, firefly_clamp: float = 30.0) -> MatballFns:
     """Ground-truth matball: the measured BRDF importance-samples itself."""
     from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import eval_brdf, eval_pdf_brdf, sample_brdf
 
-    def clamp(w_rgb):
-        lum = 0.2126 * w_rgb[..., 0] + 0.7152 * w_rgb[..., 1] + 0.0722 * w_rgb[..., 2]
-        return torch.where((lum < firefly_clamp)[..., None], w_rgb, 0.0)
-
     return MatballFns(
         draw=lambda gen, n: _uniform(gen, (n, 2), 1e-6, 1.0 - 1e-6),
         sample=lambda u, wi: sample_brdf(brdf, u, wi),
         eval=lambda wi, wo: eval_brdf(brdf, wi, wo),
         eval_pdf=lambda wi, wo: eval_pdf_brdf(brdf, wi, wo),
-        weight_filter=clamp,
+        weight_filter=_luminance_clamp(firefly_clamp),
     )
 
 
 def neural_matball(nb) -> MatballFns:
-    """Neural matball: ODE sample and its pdf (K1 draws with a kernel seed
-    from the bounce's generator), measured eval. eval_pdf is the MEASURED fused
-    (f, pdf), the MIS proxy (see the note in `_bounce_body`)."""
+    """Neural matball: ODE sample and its pdf (K1 or K4 draws with a kernel
+    seed from the bounce's generator), measured eval. eval_pdf is the
+    MEASURED fused (f, pdf), the MIS proxy (see the note in `_bounce_body`)."""
     from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import eval_pdf_brdf
     from bsdf_diffusion_sampling_tpu_torch.render.neural import firefly_filter, neural_eval, neural_sample
 
@@ -369,4 +384,78 @@ def neural_matball(nb) -> MatballFns:
         eval=lambda wi, wo: neural_eval(nb, wi, wo),
         eval_pdf=lambda wi, wo: eval_pdf_brdf(nb.brdf, wi, wo),
         weight_filter=lambda w: firefly_filter(nb, w),
+    )
+
+
+def _luminance_clamp(firefly_clamp: float):
+    def clamp(w_rgb):
+        lum = 0.2126 * w_rgb[..., 0] + 0.7152 * w_rgb[..., 1] + 0.0722 * w_rgb[..., 2]
+        return torch.where((lum < firefly_clamp)[..., None], w_rgb, 0.0)
+
+    return clamp
+
+
+def _table_eval(mat, albedo, device):
+    """f * cos of a material-table entry times the albedo tint, as rgb."""
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.materials import eval_material
+
+    albedo_v = torch.tensor(albedo, dtype=torch.float32, device=device)
+
+    def _eval(wi, wo):
+        f = eval_material(mat, wi, wo)
+        if f.ndim == wi.ndim - 1:  # grey materials broadcast to rgb
+            f = f[..., None].expand(*f.shape, 3)
+        return f * albedo_v
+
+    return _eval
+
+
+def principled_matball(mat, albedo=(1.0, 1.0, 1.0), firefly_clamp: float = 3.5, device="cuda") -> MatballFns:
+    """Ground-truth full-sphere matball: a material-table entry's analytic
+    eval times the albedo tint, sampled by a cosine lobe mirrored below the
+    surface with probability 1/2 when the material transmits. Its draw is
+    (u (N, 2) for the cosine lobe, u_side (N,) for the side)."""
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import PrincipledParams
+
+    device = resolve_device(device)
+    transmits = (not isinstance(mat, PrincipledParams)) or mat.spec_trans > 0
+    p_up = 0.5  # upper-hemisphere probability of the two-sided mixture
+
+    def sample(rand, wi):
+        u, u_side = rand
+        wo, pdf = cosine_sample(u)
+        if transmits:
+            go_down = u_side > p_up
+            wo = torch.where(go_down[..., None], wo * torch.tensor([1.0, 1.0, -1.0], device=wo.device), wo)
+            pdf = wo[..., 2].abs() / math.pi * 0.5  # 50/50 mirrored cosine
+        return wo, pdf
+
+    def pdf(wi, wo):
+        base = wo[..., 2].abs() / math.pi
+        return base * 0.5 if transmits else torch.where(wo[..., 2] > 0, base, 0.0)
+
+    return MatballFns(
+        draw=lambda gen, n: (_uniform(gen, (n, 2)), _uniform(gen, (n,))),
+        sample=sample,
+        eval=_table_eval(mat, albedo, device),
+        weight_filter=_luminance_clamp(firefly_clamp),
+        pdf=pdf,
+        transmissive=transmits,
+    )
+
+
+def neural_matball_sphere(nb, mat, albedo=(1.0, 1.0, 1.0)) -> MatballFns:
+    """Full-sphere neural matball: the spherical sampler's draw and pdf (K4
+    draws with a kernel seed from the bounce's generator) and the table
+    material's analytic eval times the albedo. It has no fused eval_pdf, so
+    MIS queries the neural pdf at the NEE and at the sampled direction."""
+    from bsdf_diffusion_sampling_tpu_torch.render.neural import firefly_filter, neural_pdf, neural_sample
+
+    return MatballFns(
+        draw=lambda gen, n: draw_seed(gen),
+        sample=lambda rand, wi: neural_sample(nb, rand, wi),
+        eval=_table_eval(mat, albedo, nb.v_params[0]["w"].device),
+        weight_filter=lambda w: firefly_filter(nb, w),
+        pdf=lambda wi, wo: neural_pdf(nb, wi, wo),
+        transmissive=True,
     )

@@ -6,7 +6,10 @@ the renderer reads: `.serialized` meshes, a Mitsuba-XML scene in the
 The scene: a UV-sphere matball (the `mybsdf` material, MAT_BALL) with
 normals and uvs, resting on a checkered ground plane (MAT_PLANE), under a
 sky envmap with a small bright sun. The default tessellation gives 61,648
-triangles, the matpreview scene's size (61.6k).
+triangles, the matpreview scene's size (61.6k). The matball's hook names
+the measured BRDF (`scene_measured.xml`), or, with `table=`, a material-
+table index and an albedo tint as `scene_bsdf.xml` does (no `.bsdf` file
+then).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ SUN_DIR = (0.4, 0.75, 0.5)
 SUN_RADIANCE = 60.0
 MATERIAL = "synthetic_rgb"  # the scene's mybsdf filename; its .bsdf file sits beside the XML
 ROUGHNESS = 0.35  # of the synthesized BRDF's lobes
+TABLE = (20, (0.4, 0.8, 0.4))  # scene_bsdf.xml's hook: material-table idx 20, a green albedo
 
 
 def sky_envmap(h: int, w: int) -> np.ndarray:
@@ -109,7 +113,14 @@ def synthetic_measured_tensors(seed: int = 0, vndf_res=(64, 64), lum_res=(32, 32
     }
 
 
-def _xml(width: int, height: int, spp: int, max_depth: int, lights) -> str:
+def _hook_xml(table) -> str:
+    if table is None:
+        return f'<string name="filename" value="{MATERIAL}"/>'
+    idx, albedo = table
+    return f'<integer name="idx" value="{idx}"/>\n        <vector name="albedo" value="{", ".join(map(str, albedo))}"/>'
+
+
+def _xml(width: int, height: int, spp: int, max_depth: int, lights, table) -> str:
     light_xml = "".join(
         f'    <emitter type="point">\n        <point name="position" value="{p[0]}, {p[1]}, {p[2]}"/>\n'
         f'        <rgb name="intensity" value="{p[3]}, {p[4]}, {p[5]}"/>\n    </emitter>\n' for p in lights)
@@ -149,7 +160,7 @@ def _xml(width: int, height: int, spp: int, max_depth: int, lights) -> str:
         <ref name="reflectance" id="checks"/>
     </bsdf>
     <bsdf type="mybsdf" id="ball_mat">
-        <string name="filename" value="{MATERIAL}"/>
+        {_hook_xml(table)}
     </bsdf>
     <shape type="serialized" id="plane">
         <string name="filename" value="scene.serialized"/>
@@ -173,16 +184,19 @@ def _xml(width: int, height: int, spp: int, max_depth: int, lights) -> str:
 
 def write_scene(directory: str, *, n_lat: int = 150, n_lon: int = 200, plane_g: int = 32,
                 env_res=(128, 256), width: int = 512, height: int = 512, spp: int = 64,
-                max_depth: int = 12, lights=()) -> str:
-    """Write the scene into `directory` and return the XML's path. The
-    measured BRDF goes to `<directory>/<MATERIAL>.bsdf`; `lights` is a list
-    of point lights (x, y, z, r, g, b)."""
+                max_depth: int = 12, lights=(), table=None) -> str:
+    """Write the scene into `directory` and return the XML's path. `lights`
+    is a list of point lights (x, y, z, r, g, b). Without `table` the
+    matball is the measured BRDF, written to `<directory>/<MATERIAL>.bsdf`,
+    and the XML is `scene_measured.xml`; with `table` = (idx, albedo) (e.g.
+    `TABLE`) it is that material-table entry and the XML `scene_bsdf.xml`."""
     os.makedirs(directory, exist_ok=True)
     write_serialized(os.path.join(directory, "scene.serialized"),
                      [plane_grid(plane_g, 6.0), uv_sphere(n_lat, n_lon)])
     write_exr(os.path.join(directory, "envmap.exr"), sky_envmap(*env_res))
-    write_tensor_file(os.path.join(directory, f"{MATERIAL}.bsdf"), synthetic_measured_tensors())
-    path = os.path.join(directory, "scene_measured.xml")
+    if table is None:
+        write_tensor_file(os.path.join(directory, f"{MATERIAL}.bsdf"), synthetic_measured_tensors())
+    path = os.path.join(directory, "scene_measured.xml" if table is None else "scene_bsdf.xml")
     with open(path, "w") as f:
-        f.write(_xml(width, height, spp, max_depth, lights))
+        f.write(_xml(width, height, spp, max_depth, lights, table))
     return path

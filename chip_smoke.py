@@ -11,21 +11,32 @@ Phases, each of which raises on failure:
   1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`,
      one nvcc per source, all started together;
   2. print the card's name and power limit; turn TF32 off;
-  3. make full-width disk weights from a numpy seed, write them with the
-     port's `.npz` writer, read them back, and build the neural BSDF;
-  4. hold K1 and K2 against their plain PyTorch versions on the card, at
-     2^20 rows and at 2^20 - 37 (a partly masked block);
+  3. make full-width weights from a numpy seed (disk 3 x 32; spherical
+     4 x 32 and its 6 x 64 teacher), write them with the port's `.npz`
+     writer, read them back, and build the neural BSDFs;
+  4. hold K1, K2 and K4 against their plain PyTorch versions on the card, at
+     2^20 rows and at 2^20 - 37 (a partly masked block), K4 from explicit
+     eps and from its in-kernel draw; hold K3 against its plain version in
+     every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
+     reverse, with and without the det, at 2^20; spherical 6 x 64 primal
+     at T = 128 and disk primal at T = 256, at 2^16;
   5. write the procedural matpreview-size scene (61,648 triangles,
-     `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF) and load it;
+     `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF), and its
+     table-material twin (scene_bsdf-style hook, idx 20, albedo (0.4, 0.8,
+     0.4)), and load them;
   6. hold K5 against its plain walker on primary, secondary and shadow
      rays (closest and any hit) at 2^20 and 2^20 - 37 rays;
-  7. the sampler path: bounces of neural_sample -> neural_pdf at 2^20
-     queries, with the kernels' launch counts read around it;
-  8. the render path, this slice's main path: `cli/render.py` at 512 x 512,
-     64 spp, depth 12, in modes gt and neural-disk (after a short warm-up
-     render in each), with the launch counts read around each render, and
-     checks of the images;
-  9. time each kernel, its plain version and its bound; one bounce's stages;
+  7. the sampler paths: bounces of neural_sample -> neural_pdf at 2^20
+     queries, disk and spherical (exact pdf, then K3's reverse-Euler pdf),
+     with the kernels' launch counts read around each;
+  8. the render paths through `cli/render.py` at 512 x 512, depth 12 (after
+     a short warm-up render in each): gt, neural-disk and neural-spherical on
+     the measured scene at 64 spp; gt and neural-sphere on the table scene
+     at 16 spp; then one neural-sphere render with the reverse-Euler pdf
+     (K3) through `render()`; the launch counts read around each render,
+     and checks of the images;
+  9. time each kernel, its plain version and its bound; the plain exact
+     spherical pdf; one bounce's stages, neural-disk and neural-sphere;
   10. print the `kernels` line and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
@@ -47,8 +58,12 @@ import torch
 
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
 from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
+from bsdf_diffusion_sampling_tpu_torch.bsdf.materials import BSDF_MATERIALS
+from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher
+from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
+from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
 from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
@@ -60,10 +75,12 @@ from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
     _ray_sort_key,
     _sort_perm,
     draw_bounce,
+    neural_matball_sphere,
+    render,
 )
 from bsdf_diffusion_sampling_tpu_torch.render.lambert import cosine_sample, make_frame, to_world
 from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, neural_pdf, neural_sample
-from bsdf_diffusion_sampling_tpu_torch.render.procedural import write_scene
+from bsdf_diffusion_sampling_tpu_torch.render.procedural import TABLE, write_scene
 from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, load_scene
 from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree, save_pytree
 
@@ -78,6 +95,11 @@ RENDER_RES = 512
 RENDER_CHUNK = 4
 RENDER_SPP = 64
 RENDER_DEPTH = 12
+# The table scene's renders (gt, neural-sphere) at fewer spp: each
+# neural-sphere bounce runs the plain exact spherical pdf twice on the
+# whole wavefront, which keeps the whole run inside a few minutes.
+TABLE_SPP = 16
+N_LONG = 1 << 16  # rectify's long transports (T = 128, 256) are checked and timed at 2^16 rows
 
 # Kernel vs plain, both fp32 on the card. The two sum in other orders, so
 # they differ by rounding only: ~1e-7 in x, ~1e-6 relative in the pdf.
@@ -94,6 +116,19 @@ MOMENT_SIGMAS = 5.0
 # package's tests/test_fused_sample_pdf.py:143-171).
 MIN_VALID_FRACTION = 0.1
 TOL_CONTRACT_MEDIAN = 1e-3
+# K4 and K3 against their plain versions, given the same x0: the spherical
+# net is deeper and T = 8, so the tolerances are 2x the disk ones (the JAX
+# package's own kernel-vs-XLA test holds x to 2e-5 and pdfs to 5e-4). K4's
+# in-kernel draw against its numpy/PyTorch reproduction: the two take the
+# base heads in other orders (FMA chains against a matmul), and Best-Fisher
+# amplifies an ulp of the heads: acos(f) near f = -1 (u0 near 1) by
+# 1/sqrt(1 - f^2), and a flipped accept changes phi0 by a lot. So theta0
+# is held to 2e-5 and phi0 to 1e-3 rad on the circle, on at least 99.99% of
+# rows; the share within 2e-5 and the largest phi0 difference are printed.
+TOL_SPH_X_ABS = 2e-5
+TOL_SPH_PDF_REL = 2e-4
+TOL_DRAW_PHI = 1e-3
+MIN_DRAW_MATCH = 0.9999
 
 # Published dense fp32 (CUDA-core) rates and memory rates, by card.
 PEAKS = {  # name fragment: (fp32 FLOP/s, bytes/s)
@@ -107,12 +142,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def init_weights(seed: int) -> dict:
-    """Full-width disk weights, Kaiming-uniform as the JAX package's
+SPH_CFG = render_cli.model_cfg("spherical")  # 4 x 32
+TEACHER_CFG = ModelConfig(domain="spherical", velocity_hidden=64, velocity_layers=6)
+
+
+def init_weights(seed: int, cfg: ModelConfig, teacher: ModelConfig | None = None) -> dict:
+    """Full-width weights for `cfg`, Kaiming-uniform as the JAX package's
     `models/mlp.py:21-38` draws them; velocity weights scaled by 0.5 so the
     Euler map stays invertible, as the JAX tests do."""
     rng = np.random.default_rng(seed)
-    cfg = ModelConfig()
 
     def layers(dims, bias, scale=1.0):
         out = []
@@ -124,9 +162,14 @@ def init_weights(seed: int) -> dict:
             out.append(layer)
         return out
 
-    v_dims = [cfg.velocity_in_dim] + [cfg.velocity_hidden] * cfg.velocity_layers + [2]
+    def v_dims(c):
+        return [c.velocity_in_dim] + [c.velocity_hidden] * c.velocity_layers + [2]
+
     b_dims = [2 * (2 * cfg.base_pe_bands + 1), cfg.base_hidden, 4]
-    return {"base": {"net": layers(b_dims, True)}, "rectified": layers(v_dims, False, 0.5)}
+    tree = {"base": {"net": layers(b_dims, True)}, "rectified": layers(v_dims(cfg), False, 0.5)}
+    if teacher is not None:
+        tree["teacher"] = layers(v_dims(teacher), False, 0.5)
+    return tree
 
 
 def hemisphere(u: torch.Tensor) -> torch.Tensor:
@@ -221,6 +264,99 @@ def check_kernels(nb, device, n: int) -> dict:
     return out
 
 
+def wrap_abs(d: torch.Tensor) -> torch.Tensor:
+    """|d| taken on the circle."""
+    return torch.remainder(d + math.pi, 2.0 * math.pi).sub(math.pi).abs()
+
+
+def sph_inputs(nb, device, n: int, seed: int):
+    """cond_enc of upper-hemisphere wi in spherical coordinates, and eps =
+    (standard normal, phi uniform on the circle), a prefix of N_MAIN rows."""
+    rng = np.random.default_rng(seed)
+    wi = hemisphere(torch.from_numpy(rng.random((N_MAIN, 2), dtype=np.float32)).to(device))[:n]
+    cond = encode_condition(cart_to_spher(wi), nb.cfg)
+    eps = torch.from_numpy(np.stack([rng.standard_normal(N_MAIN), rng.uniform(-math.pi, math.pi, N_MAIN)], -1)
+                           .astype(np.float32)).to(device)[:n].contiguous()
+    return wi, cond, eps
+
+
+def check_spherical(nb, device, n: int) -> dict:
+    """Phase 4, K4: from explicit eps, against the plain version; from the
+    in-kernel draw, the transport and pdf against the plain version at the
+    kernel's own x0, and the draw against its reproduction."""
+    _, cond, eps = sph_inputs(nb, device, n, SEED + 11)
+    w, T = nb.packed, nb.T
+    log(f"  n = {n}")
+    x, pdf, x0 = fo.fused_sample_pdf_spherical(w, cond, T, eps=eps)
+    xp, pdfp, x0p = fo.sample_pdf_spherical_plain(w, cond, T, eps=eps)
+    k4 = {"x_abs": max_abs(x, xp), "x0_abs": max_abs(x0, x0p), "pdf_rel": max_rel(pdf, pdfp)}
+    log(f"  K4 eps    vs plain: {k4}")
+
+    seed = 20240611
+    xs, pdfs, x0s = fo.fused_sample_pdf_spherical(w, cond, T, seed=seed)
+    xa, pdfa, _ = fo.sample_pdf_spherical_plain(w, cond, T, x0=x0s)
+    x0r = fo.spherical_x0_from_seed(w, cond, seed)
+    d_phi = wrap_abs(x0s[:, 1] - x0r[:, 1])
+    same = ((x0s[:, 0] - x0r[:, 0]).abs() <= TOL_SPH_X_ABS) & (d_phi <= TOL_DRAW_PHI)
+    k4p = {"x_abs_at_own_x0": max_abs(xs, xa), "pdf_rel_at_own_x0": max_rel(pdfs, pdfa),
+           "draw_match": float(same.float().mean()), "draw_differ_rows": int((~same).sum()),
+           "phi0_within_2e-5": float((d_phi <= TOL_SPH_X_ABS).float().mean()), "phi0_max_diff": float(d_phi.max()),
+           "theta0_abs": max_abs(x0s[:, 0], x0r[:, 0]),
+           "phi0_in_range": bool(((x0s[:, 1] >= -math.pi) & (x0s[:, 1] < math.pi)).all())}
+    log(f"  K4 philox vs plain: {k4p}")
+    for name, t in (("x", x), ("pdf", pdf), ("x_seed", xs), ("pdf_seed", pdfs)):
+        require(bool(torch.isfinite(t).all()), f"non-finite K4 output {name}")
+    require(max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]) <= TOL_SPH_X_ABS, "K4 x/x0 differs from plain")
+    require(max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"]) <= TOL_SPH_PDF_REL, "K4 pdf differs from plain")
+    require(k4p["draw_match"] >= MIN_DRAW_MATCH, "K4's in-kernel draw differs from its reproduction")
+    require(k4p["phi0_in_range"], "K4 phi0 outside [-pi, pi)")
+    return {"max_abs_err": max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]),
+            "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"])}
+
+
+def k3_cases(nb_disk, nb_sph, teacher, device) -> list:
+    """Every instantiation of K3 on the inputs its callers give it: forward
+    from base draws, reverse from the draws' end points. (label, packed
+    weights, domain, x, cond, T, reverse, with_jac)."""
+    cases = []
+    _, cond_s, eps_s = sph_inputs(nb_sph, device, N_MAIN, SEED + 12)
+    xs, _, x0s = fo.sample_pdf_spherical_plain(nb_sph.packed, cond_s, nb_sph.T, eps=eps_s)
+    rng = np.random.default_rng(SEED + 13)
+    wi = hemisphere(torch.from_numpy(rng.random((N_MAIN, 2), dtype=np.float32)).to(device))
+    cond_d = encode_condition(wi[:, :2], nb_disk.cfg)
+    eps_d = torch.from_numpy(rng.standard_normal((N_MAIN, 2), dtype=np.float32)).to(device)
+    xd, _, x0d = fo.sample_pdf_disk_plain(nb_disk.packed, cond_d, nb_disk.T, eps=eps_d)
+    for dom, nb, x0, x, cond in (("disk", nb_disk, x0d, xd, cond_d), ("spherical", nb_sph, x0s, xs, cond_s)):
+        for reverse in (False, True):
+            for jac in (True, False):
+                label = f"{dom} {nb.packed.layers}x{nb.packed.hidden} {'reverse' if reverse else 'forward'} " \
+                        f"{'det' if jac else 'primal'} T={nb.T}"
+                cases.append((label, nb.packed, dom, (x if reverse else x0).contiguous(), cond, nb.T, reverse, jac))
+    cases.append(("spherical 6x64 forward primal T=128", teacher, "spherical", x0s[:N_LONG].contiguous(),
+                  cond_s[:N_LONG], 128, False, False))
+    cases.append(("disk 3x32 forward primal T=256", nb_disk.packed, "disk", x0d[:N_LONG].contiguous(),
+                  cond_d[:N_LONG], 256, False, False))
+    return cases
+
+
+def check_transport(cases) -> dict:
+    """Phase 4, K3 against its plain version in every instantiation."""
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for label, w, dom, x, cond, T, reverse, jac in cases:
+        xk, dk = fo.fused_transport_packed(w, dom, x, cond, T, reverse=reverse, with_jac=jac)
+        xp, dp = fo.transport_plain(dom, w, x, cond, T, reverse=reverse, with_jac=jac)
+        r = {"n": x.shape[0], "x_abs": max_abs(xk, xp), "det_rel": max_rel(dk, dp) if jac else 0.0,
+             "det_zero": bool((dk == 0).all()) if not jac else None}
+        log(f"  K3 {label:38s} vs plain: {r}")
+        require(bool(torch.isfinite(xk).all() and torch.isfinite(dk).all()), f"K3 {label}: non-finite output")
+        require(r["x_abs"] <= TOL_SPH_X_ABS, f"K3 {label}: x differs from plain")
+        require(r["det_rel"] <= TOL_SPH_PDF_REL, f"K3 {label}: det differs from plain")
+        require(jac or r["det_zero"], f"K3 {label}: det not 0 without the det")
+        out["max_abs_err"] = max(out["max_abs_err"], r["x_abs"])
+        out["max_rel_err"] = max(out["max_rel_err"], r["det_rel"])
+    return out
+
+
 def k5_ray_sets(accel, cam, device, n: int, seed: int) -> dict:
     """The four kinds of rays the render traces, n of each (a prefix of one
     2^20 wavefront): primary camera rays at 512 x 512 x 4; secondary rays from
@@ -283,8 +419,11 @@ def check_traverse(accel, cam, device, n: int) -> dict:
     return out
 
 
+DISK_SAMPLER = ("fused_sample_pdf_disk", "fused_pdf_disk")
+
+
 def main_path(nb, device) -> dict:
-    """Phase 5: bounces of sample -> pdf query at N_MAIN, counts around it."""
+    """Phase 7: bounces of disk sample -> pdf query at N_MAIN, counts around it."""
     gen = root_generator(SEED + 2, device)
     stats = []
     fo.reset_launches()
@@ -302,11 +441,39 @@ def main_path(nb, device) -> dict:
         require(s["finite"], "non-finite main-path output")
         require(s["valid_fraction"] >= MIN_VALID_FRACTION, "too few valid draws")
         require(s["gap"]["median"] < TOL_CONTRACT_MEDIAN, "pdf query disagrees with the sampler's pdf")
-        require(all(fo.launches[k] > before[k] for k in fo.launches), "a kernel was not launched this bounce")
+        require(all(fo.launches[k] > before[k] for k in DISK_SAMPLER), "a kernel was not launched this bounce")
         stats.append(s)
     counts = dict(fo.launches)
-    log(f"launches on the main path: {counts}")
+    log(f"launches on the disk sampler path: {counts}")
     return counts
+
+
+def sph_sampler_path(nbs: dict, device) -> dict:
+    """Phase 7, spherical: one bounce of neural_sample -> neural_pdf at
+    N_MAIN for each pdf route, counts around each: K4 once; K3 once with the
+    reverse-Euler pdf, not at all with the exact one (plain PyTorch)."""
+    gen = root_generator(SEED + 14, device)
+    out = {}
+    for route, nb in nbs.items():
+        fo.reset_launches()
+        wi = hemisphere(torch.rand((N_MAIN, 2), generator=gen, device=device))
+        wo, pdf = neural_sample(nb, gen, wi)
+        pdf_q = neural_pdf(nb, wi, wo)
+        counts = dict(fo.launches)
+        ok = pdf > 1e-6
+        s = {"domain": nb.domain, "pdf": route, "valid_fraction": float((pdf > 0).float().mean()),
+             "gap": gap_stats(pdf_q[ok], pdf[ok]), "launches": counts}
+        log(f"spherical sampler path {s}")
+        require(bool(torch.isfinite(wo).all() and torch.isfinite(pdf).all() and torch.isfinite(pdf_q).all()),
+                "non-finite spherical sampler output")
+        require(s["valid_fraction"] >= MIN_VALID_FRACTION, "too few valid spherical draws")
+        require(counts["fused_sample_pdf_spherical"] == 1 and counts["fused_sample_pdf_disk"] == 0,
+                "K4 not launched once (or K1 launched) for one spherical draw")
+        require(counts["fused_transport"] == (1 if route == "reverse" else 0), "K3 launches off for the pdf route")
+        if route == "exact":
+            require(s["gap"]["median"] < TOL_CONTRACT_MEDIAN, "exact spherical pdf disagrees with the sampler's pdf")
+        out[route] = s
+    return out
 
 
 def cuda_ms(fn, runs=RUNS, warmup=2) -> float:
@@ -377,6 +544,61 @@ def times(nb, device, name: str) -> dict:
     return out
 
 
+def net_macs(hidden: int, layers: int, x_enc: int):
+    """Multiply-adds of one velocity evaluation once the condition's part of
+    layer 0 is taken: (primal, one tangent stream)."""
+    deep = (layers - 1) * hidden * hidden + 2 * hidden
+    return (x_enc + 1) * hidden + deep, x_enc * hidden + deep
+
+
+def timed(label: str, kern, plain, macs: int, nbytes: int, n: int, name: str, plain_runs: int = 5) -> dict:
+    flops_peak, bytes_peak = next(v for k, v in PEAKS.items() if k in name)
+    t_ops, t_bytes = 2.0 * macs / flops_peak * 1e3, nbytes / bytes_peak * 1e3
+    ms = cuda_ms(kern)
+    with torch.no_grad():
+        plain_ms = cuda_ms(plain, runs=plain_runs, warmup=1)
+    r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "meval_per_s": n / ms / 1e3,
+         "flop": 2 * macs, "bytes": nbytes, "n": n}
+    log(f"time {label}: {r}")
+    return r
+
+
+K3_MAIN = "spherical 4x32 reverse det T=8"  # the instantiation the render path runs
+
+
+def times_spherical(nb, cases, device, name: str) -> dict:
+    """Phase 9: K4 and every K3 instantiation, their plain versions and
+    bounds; the plain exact spherical pdf at N_MAIN."""
+    wi, cond, eps = sph_inputs(nb, device, N_MAIN, SEED + 15)
+    w, T = nb.packed, nb.T
+    seed = torch.tensor([11], dtype=torch.int64, device=device)
+    primal, tangent = net_macs(w.hidden, w.layers, 3)
+    once = fo.COND_DIM * w.hidden + fo.BASE_COLS * 16 + 16 * 4  # cond part of W0, base heads
+    out = {"fused_sample_pdf_spherical": timed(
+        "fused_sample_pdf_spherical", lambda: fo.fused_sample_pdf_spherical(w, cond, T, seed=seed),
+        lambda: fo.sample_pdf_spherical_plain(w, cond, T, eps=eps), N_MAIN * (once + T * (primal + 2 * tangent)),
+        N_MAIN * (4 * fo.COND_DIM + 20), N_MAIN, name)}
+    for label, wk, dom, x, c, tk, reverse, jac in cases:
+        n = x.shape[0]
+        p, g = net_macs(wk.hidden, wk.layers, fo.X_ENC[dom])
+        r = timed(f"fused_transport {label}",
+                  lambda: fo.fused_transport_packed(wk, dom, x, c, tk, reverse=reverse, with_jac=jac),
+                  lambda: fo.transport_plain(dom, wk, x, c, tk, reverse=reverse, with_jac=jac),
+                  n * (fo.COND_DIM * wk.hidden + tk * (p + 2 * g if jac else p)),
+                  n * (8 + 4 * fo.COND_DIM + 8 + 4), n, name, plain_runs=3)
+        if label == K3_MAIN:
+            out["fused_transport"] = r
+    x, _, _ = fo.fused_sample_pdf_spherical(w, cond, T, seed=seed)
+    omega = cart_to_spher(wi)
+    with torch.no_grad():
+        out["exact_pdf_plain_ms"] = cuda_ms(
+            lambda: ode_pdf_exact("sphere_full", nb.v_params, nb.base_params, x, omega, cond, T,
+                                  newton_iters=nb.pdf_newton_iters), runs=3, warmup=1)
+    log(f"time plain exact spherical pdf (ode_pdf_exact, N={N_MAIN}, T={T}): {out['exact_pdf_plain_ms']:.3f} ms")
+    return out
+
+
 # K5's operations per test, counted as the kernel does them: a slab test is
 # 6 sub, 6 mul, 10 min/max and 3 compares; a Moller-Trumbore test is 27 mul,
 # 17 add/sub, 1 divide and 8 compares (min/max and compares count as fp32
@@ -412,34 +634,77 @@ def time_traverse(accel, cam, device, name: str) -> dict:
     return tot
 
 
-def render_main_path(d: str, scene_path: str, weights: str, device) -> dict:
-    """The render through `cli/render.py` in both modes, counts around each."""
-    bounces = (RENDER_SPP // RENDER_CHUNK) * RENDER_DEPTH
+# The renders of phase 8: (scene, mode, spp). `table` is the scene_bsdf-style
+# twin of the measured scene.
+RENDERS = (("measured", "gt", RENDER_SPP), ("measured", "neural-disk", RENDER_SPP),
+           ("measured", "neural-spherical", RENDER_SPP), ("table", "gt", TABLE_SPP),
+           ("table", "neural-sphere", TABLE_SPP))
+K3_RENDER = ("table", "neural-sphere K3", TABLE_SPP)  # the reverse-Euler pdf, through render()
+# launches a bounce each mode must show (K5 at least 2, the others exactly)
+EXPECTED = {"gt": {}, "neural-disk": {"fused_sample_pdf_disk": 1},
+            "neural-spherical": {"fused_sample_pdf_spherical": 1},
+            "neural-sphere": {"fused_sample_pdf_spherical": 1},
+            "neural-sphere K3": {"fused_sample_pdf_spherical": 1, "fused_transport": 2}}
 
-    def cli(mode, spp, depth, res):
-        return render_cli.main(["--scene", scene_path, "--bsdf-dir", d, "--material", "synthetic_rgb",
-                                "--mode", mode, "--checkpoint", weights, "--spp", str(spp),
-                                "--spp-chunk", str(RENDER_CHUNK), "--max-depth", str(depth), "--width", str(res),
-                                "--height", str(res), "--device", str(device), "--out", os.path.join(d, mode)])
 
-    for mode in ("gt", "neural-disk"):  # warm-up: CUDA module loading and the allocator's first blocks
-        cli(mode, RENDER_CHUNK, 2, RENDER_RES)
+def counted(fn):
+    """Run fn with every launch count set to 0 just before; the counts just after."""
+    fo.reset_launches()
+    t8.reset_launches()
+    out = fn()
+    return out, {**fo.launches, **t8.launches}
+
+
+def check_render(label: str, img, dt: float, spp: int, counts: dict) -> dict:
+    bounces = (spp // RENDER_CHUNK) * RENDER_DEPTH
+    r = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * spp / dt / 1e6, "spp": spp,
+         "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
+    log(f"render {label}: {r}")
+    require(bool(np.isfinite(img).all()) and img.max() > 0, f"render {label}: non-finite or black image")
+    require(counts["traverse8"] >= 2 * bounces, f"render {label}: K5 launched {counts['traverse8']} times "
+            f"in {bounces} bounces")
+    want = EXPECTED[label.split(" ", 1)[1]]
+    for k in fo.launches:
+        require(counts[k] == want.get(k, 0) * bounces,
+                f"render {label}: {k} launched {counts[k]} times in {bounces} bounces, "
+                f"expected {want.get(k, 0)} a bounce")
+    return r
+
+
+def render_main_path(d: str, scenes: dict, weights: dict, sph_tree: dict, device) -> dict:
+    """The renders through `cli/render.py`, counts around each, then the
+    neural-sphere render with the reverse-Euler pdf (K3) through render()."""
+
+    def cli(scene, mode, spp, depth):
+        return render_cli.main(["--scene", scenes[scene], "--bsdf-dir", d, "--material", "synthetic_rgb",
+                                "--mode", mode, "--checkpoint", weights.get(mode, ""), "--spp", str(spp),
+                                "--spp-chunk", str(RENDER_CHUNK), "--max-depth", str(depth),
+                                "--width", str(RENDER_RES), "--height", str(RENDER_RES), "--device", str(device),
+                                "--out", os.path.join(d, f"{scene}_{mode}")])
+
+    for scene, mode, _ in RENDERS:  # warm-up: CUDA module loading and the allocator's first blocks
+        cli(scene, mode, RENDER_CHUNK, 2)
     out = {}
-    for mode in ("gt", "neural-disk"):
-        fo.reset_launches()
-        t8.reset_launches()
-        img, dt = cli(mode, RENDER_SPP, RENDER_DEPTH, RENDER_RES)
-        counts = {**fo.launches, **t8.launches}
-        r = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * RENDER_SPP / dt / 1e6,
-             "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
-        log(f"render {mode}: {r}")
-        require(bool(np.isfinite(img).all()) and img.max() > 0, f"render {mode}: non-finite or black image")
-        require(counts["traverse8"] >= 2 * bounces, f"render {mode}: K5 launched {counts['traverse8']} times "
-                f"in {bounces} bounces")
-        if mode == "neural-disk":
-            require(counts["fused_sample_pdf_disk"] == bounces,
-                    f"render {mode}: K1 launched {counts['fused_sample_pdf_disk']} times in {bounces} bounces")
-        out[mode] = (img, r)
+    for scene, mode, spp in RENDERS:
+        (img, dt), counts = counted(lambda: cli(scene, mode, spp, RENDER_DEPTH))
+        out[f"{scene} {mode}"] = (img, check_render(f"{scene} {mode}", img, dt, spp, counts))
+
+    scene_t = load_scene(scenes["table"], device=device, width=RENDER_RES, height=RENDER_RES)
+    nb = make_neural_bsdf("sphere_full", SPH_CFG, sph_tree["rectified"], sph_tree["base"],
+                          sampler_cfg=SamplerConfig(pdf_exact=False), device=device)
+    mb = neural_matball_sphere(nb, BSDF_MATERIALS[TABLE[0]], TABLE[1])
+    render(scene_t, mb, spp=RENDER_CHUNK, spp_chunk=RENDER_CHUNK, max_depth=2, device=device)
+
+    def k3_render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scene_t, mb, seed=0, spp=K3_RENDER[2], spp_chunk=RENDER_CHUNK, max_depth=RENDER_DEPTH,
+                     device=device)
+        return img, time.perf_counter() - t0
+
+    (img, dt), counts = counted(k3_render)
+    label = f"{K3_RENDER[0]} {K3_RENDER[1]}"
+    out[label] = (img, check_render(label, img, dt, K3_RENDER[2], counts))
     return out
 
 
@@ -453,23 +718,39 @@ def pixel_materials(accel, cam, device) -> np.ndarray:
 
 
 def check_images(images: dict, mats: np.ndarray) -> dict:
+    """Every image: the matball differs from the plane. The table scene's:
+    the matball's centre is greener than red (the albedo tint). Both scenes
+    share their geometry and camera, so one material map serves."""
     ball, plane = mats == MAT_BALL, mats == MAT_PLANE
+    rows, cols = np.nonzero(ball)
+    r0, r1, c0, c1 = rows.min(), rows.max(), cols.min(), cols.max()
+    centre = np.zeros_like(ball)
+    centre[(3 * r0 + r1) // 4:(r0 + 3 * r1) // 4, (3 * c0 + c1) // 4:(c0 + 3 * c1) // 4] = True
+    centre &= ball
     out = {}
-    for mode, (img, _) in images.items():
-        b, p = img[ball].mean(0), img[plane].mean(0)
-        out[mode] = {"ball_rgb": b.tolist(), "plane_rgb": p.tolist()}
-        require(float(np.abs(b - p).max()) > 0.01, f"render {mode}: the matball looks like the plane")
-    gt, nn = images["gt"][0], images["neural-disk"][0]
-    out["relmse_neural_vs_gt"] = float(np.mean((nn - gt) ** 2 / (gt ** 2 + 1e-2)))
-    out["ball_pixels"], out["plane_pixels"] = int(ball.sum()), int(plane.sum())
+    for label, (img, _) in images.items():
+        b, p, c = img[ball].mean(0), img[plane].mean(0), img[centre].mean(0)
+        out[label] = {"ball_rgb": b.tolist(), "plane_rgb": p.tolist(), "ball_centre_rgb": c.tolist()}
+        require(float(np.abs(b - p).max()) > 0.01, f"render {label}: the matball looks like the plane")
+        if label.startswith("table"):
+            require(c[1] > c[0], f"render {label}: the matball centre is not greener than red")
+
+    def rel_mse(a, ref):
+        return float(np.mean((a - ref) ** 2 / (ref ** 2 + 1e-2)))
+
+    for label in images:
+        scene, mode = label.split(" ", 1)
+        if mode != "gt":
+            out[f"relmse {label} vs gt"] = rel_mse(images[label][0], images[f"{scene} gt"][0])
+    out["ball_pixels"], out["plane_pixels"], out["centre_pixels"] = int(ball.sum()), int(plane.sum()), int(centre.sum())
     log(f"images: {out}")
     return out
 
 
-def bounce_breakdown(scene, mb, device, depth: int = 1) -> dict:
-    """One neural-disk bounce at the render's 2^20-ray wavefront, timed by
-    stage with CUDA events (median of RUNS); `depth` bounces are run first
-    so the rays are the incoherent secondary ones."""
+def bounce_breakdown(label: str, scene, mb, device, depth: int = 1) -> dict:
+    """One bounce with matball `mb` at the render's 2^20-ray wavefront,
+    timed by stage with CUDA events (median of RUNS); `depth` bounces are
+    run first so the rays are the incoherent secondary ones."""
     gen = root_generator(SEED + 6, device)
     n = RENDER_RES * RENDER_RES * RENDER_CHUNK
     state = _init_wavefront(scene.camera.vectors.to(device), torch.rand((n, 2), generator=gen, device=device)
@@ -495,7 +776,7 @@ def bounce_breakdown(scene, mb, device, depth: int = 1) -> dict:
     med = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
     med["bounce"] = sum(med.values())
     med["alive_in"] = int(state[5].sum())
-    log(f"bounce breakdown at depth {depth}, n={n}, ms: {med}")
+    log(f"bounce breakdown, {label}, at depth {depth}, n={n}, ms: {med}")
     return med
 
 
@@ -508,9 +789,15 @@ KERNELS = {
     "traverse8": ("K5 BVH traversal, closest and any hit",
                   "bsdf_diffusion_sampling_tpu/render/traverse8.py:251 _traverse_kernel + :63 _turn "
                   "(pallas_call :383)"),
+    "fused_sample_pdf_spherical": ("K4 spherical sample+pdf",
+                                   "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:1389 _fused_sample_pdf_sph_kernel "
+                                   "(pallas_call :1534)"),
+    "fused_transport": ("K3 generic transport",
+                        "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:181 _fused_ode_kernel (pallas_call :373)"),
 }
 SOURCES = {"fused_sample_pdf_disk": "fused_ode.cu", "fused_pdf_disk": "fused_ode.cu",
-           "traverse8": "traverse8.cu"}
+           "traverse8": "traverse8.cu", "fused_sample_pdf_spherical": "fused_sph.cu",
+           "fused_transport": "fused_transport.cu"}
 
 
 def main() -> int:
@@ -524,7 +811,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     t0 = time.time()
-    libs = cuda_build.build(["fused_ode.cu", "traverse8.cu"])
+    libs = cuda_build.build(sorted(set(SOURCES.values())))
     log(f"[1] build: {time.time() - t0:.1f} s")
     for src, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -544,30 +831,50 @@ def main() -> int:
 
 
 def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
-    weights = os.path.join(d, "disk.npz")
-    tree = init_weights(SEED)
-    save_pytree(weights, tree, step=1)
-    back, step = load_pytree(weights)
-    require(step == 1 and all(np.array_equal(a["w"], b["w"]) for a, b in zip(tree["rectified"], back["rectified"])),
-            "checkpoint round trip changed the weights")
-    nb = make_neural_bsdf("disk", ModelConfig(), back["rectified"], back["base"], sampler_cfg=SamplerConfig(),
-                          device=device)
-    log(f"[3] weights: velocity {[tuple(l['w'].shape) for l in nb.v_params]}, T={nb.T}, "
-        f"pdf_exact={nb.pdf_exact}, newton_iters={nb.pdf_newton_iters}")
+    weights = {"neural-disk": os.path.join(d, "disk.npz")}
+    for mode in ("neural-spherical", "neural-sphere"):
+        weights[mode] = os.path.join(d, "spherical.npz")
+    trees = {"neural-disk": init_weights(SEED, ModelConfig()),
+             "neural-spherical": init_weights(SEED + 100, SPH_CFG, TEACHER_CFG)}
+    back = {}
+    for mode, tree in trees.items():
+        save_pytree(weights[mode], tree, step=1)
+        back[mode], step = load_pytree(weights[mode])
+        require(step == 1 and all(np.array_equal(a["w"], b["w"]) for a, b in zip(tree["rectified"],
+                                                                                  back[mode]["rectified"])),
+                "checkpoint round trip changed the weights")
+    nb = make_neural_bsdf("disk", ModelConfig(), back["neural-disk"]["rectified"], back["neural-disk"]["base"],
+                          sampler_cfg=SamplerConfig(), device=device)
+    sph = back["neural-spherical"]
+    nb_sph = {route: make_neural_bsdf("sphere_full", SPH_CFG, sph["rectified"], sph["base"],
+                                      sampler_cfg=SamplerConfig(pdf_exact=route == "exact"), device=device)
+              for route in ("exact", "reverse")}
+    teacher = fo.prepack_velocity(params_from_jax(sph["teacher"], device))
+    for b in (nb, nb_sph["exact"]):
+        log(f"[3] weights {b.domain}: velocity {[tuple(l['w'].shape) for l in b.v_params]}, T={b.T}, "
+            f"pdf_exact={b.pdf_exact}, newton_iters={b.pdf_newton_iters}")
+    log(f"    spherical teacher: {teacher.layers} x {teacher.hidden}")
 
     t0 = time.time()
     errs = {}
     for n in (N_MAIN, N_RAGGED):
-        for k, e in check_kernels(nb, device, n).items():
+        found = check_kernels(nb, device, n)
+        found["fused_sample_pdf_spherical"] = check_spherical(nb_sph["exact"], device, n)
+        for k, e in found.items():
             errs[k] = {m: max(v, errs.get(k, {}).get(m, 0.0)) for m, v in e.items()}
-    log(f"[4] K1, K2 vs plain at n = {N_MAIN} and {N_RAGGED}: ok {errs} ({time.time() - t0:.1f} s)")
+    cases = k3_cases(nb, nb_sph["exact"], teacher, device)
+    errs["fused_transport"] = check_transport(cases)
+    log(f"[4] K1, K2, K4 vs plain at n = {N_MAIN} and {N_RAGGED}, K3 in {len(cases)} instantiations: ok {errs} "
+        f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    scene_path = write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=RENDER_SPP, max_depth=RENDER_DEPTH)
-    scene = load_scene(scene_path, device=device)
+    scenes = {"measured": write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=RENDER_SPP, max_depth=RENDER_DEPTH),
+              "table": write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=TABLE_SPP, max_depth=RENDER_DEPTH,
+                                   table=TABLE)}
+    scene = load_scene(scenes["measured"], device=device)
     log(f"[5] scene: {scene.accel.attr_rows.shape[0]} triangles, {scene.accel.n_rows} table rows "
         f"({scene.accel.table.numel() * 4 / 1e6:.2f} MB), 8-wide depth {scene.accel.max_depth}, "
-        f"envmap {tuple(scene.envmap.data.shape)} ({time.time() - t0:.1f} s)")
+        f"envmap {tuple(scene.envmap.data.shape)}; table twin {scenes['table']} ({time.time() - t0:.1f} s)")
     t0 = time.time()
     k5 = [r for n in (N_MAIN, N_RAGGED) for r in check_traverse(scene.accel, scene.camera, device, n).values()]
     log(f"[6] K5 vs plain walker at n = {N_MAIN} and {N_RAGGED}: ok ({time.time() - t0:.1f} s)")
@@ -576,30 +883,41 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
 
     t0 = time.time()
     counts = main_path(nb, device)
-    log(f"[7] sampler path: {BOUNCES} bounces of neural_sample -> neural_pdf at N={N_MAIN}: ok "
-        f"({time.time() - t0:.1f} s)")
+    sph_sampler_path(nb_sph, device)
+    log(f"[7] sampler paths: {BOUNCES} disk bounces and one spherical bounce a pdf route of neural_sample -> "
+        f"neural_pdf at N={N_MAIN}: ok ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    images = render_main_path(d, scene_path, weights, device)
+    images = render_main_path(d, scenes, weights, back["neural-spherical"], device)
     check_images(images, pixel_materials(scene.accel, scene.camera, device))
-    render_counts = images["neural-disk"][1]["launches"]
-    log(f"[8] render path: cli/render.py at {RENDER_RES}x{RENDER_RES}, {RENDER_SPP} spp, depth {RENDER_DEPTH}, "
-        f"gt and neural-disk: ok ({time.time() - t0:.1f} s)")
+    log(f"[8] render paths: cli/render.py at {RENDER_RES}x{RENDER_RES}, depth {RENDER_DEPTH}: "
+        f"{', '.join(images)}: ok ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
     tm = times(nb, device, name)
+    tm.update(times_spherical(nb_sph["exact"], cases, device, name))
     tm["traverse8"] = time_traverse(scene.accel, scene.camera, device, name)
-    mb = render_cli.build_matball({"filename": "synthetic_rgb", "idx": -1},
-                                  argparse.Namespace(bsdf_dir=d, mode="neural-disk", checkpoint=weights), device)
-    bounce_breakdown(scene, mb, device)
+    table = {"filename": "", "idx": TABLE[0], "albedo": TABLE[1]}
+    for mode, ball, sc in (("neural-disk", {"filename": "synthetic_rgb", "idx": -1}, scene),
+                           ("neural-sphere", table, load_scene(scenes["table"], device=device))):
+        mb = render_cli.build_matball(ball, argparse.Namespace(bsdf_dir=d, mode=mode, checkpoint=weights[mode]),
+                                      device)
+        bounce_breakdown(mode, sc, mb, device)
     log(f"[9] times: ({time.time() - t0:.1f} s)")
 
-    # launches: K1 and K5 from the render (this slice's main path), K2 from
-    # the sampler path, the one that runs it. max_abs_err: x and x0 for K1
-    # and K2, t for K5 (wherever both hit); max_rel_err: the pdf for K1 and
-    # K2, t for K5.
-    launches = {"fused_sample_pdf_disk": render_counts["fused_sample_pdf_disk"],
-                "fused_pdf_disk": counts["fused_pdf_disk"], "traverse8": render_counts["traverse8"]}
+    # launches: each kernel from the run of the path that runs it, counts
+    # set to 0 just before: K1 from the neural-disk render, K4 from the
+    # neural-spherical render, K3 from the neural-sphere render with the
+    # reverse-Euler pdf, K5 from the neural-disk render, K2 from the disk
+    # sampler path. max_abs_err: x and x0 (K1, K2, K4), x (K3), t (K5);
+    # max_rel_err: the pdf (K1, K2, K4), the det (K3), t (K5).
+    render_counts = {label: r["launches"] for label, (_, r) in images.items()}
+    launches = {"fused_sample_pdf_disk": render_counts["measured neural-disk"]["fused_sample_pdf_disk"],
+                "fused_pdf_disk": counts["fused_pdf_disk"],
+                "traverse8": render_counts["measured neural-disk"]["traverse8"],
+                "fused_sample_pdf_spherical":
+                    render_counts["measured neural-spherical"]["fused_sample_pdf_spherical"],
+                "fused_transport": render_counts["table neural-sphere K3"]["fused_transport"]}
     errs["traverse8"] = {"max_abs_err": max(r["t_abs_max"] for r in k5),
                          "max_rel_err": max(r["t_rel_max"] for r in k5)}
     rows = []

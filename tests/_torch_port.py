@@ -40,6 +40,33 @@ def disk_setup(n: int = 256, seed: int = 0) -> SimpleNamespace:
         t_cond=t_encode_condition(tt(omega), cfg), rng=rng, n=n)
 
 
+def sph_setup(n: int = 256, seed: int = 0, domain: str = "spherical") -> SimpleNamespace:
+    """The 4 x 32 spherical velocity net (x 0.5) and the spherical base, as
+    tests/test_fused_sample_pdf.py:210-216 makes them, and omega_i = (theta
+    in [0.1, 1.4], phi in [-3, 3])."""
+    cfg = ModelConfig(domain=domain, velocity_hidden=32, velocity_layers=4)
+    k1, k2 = jax.random.split(jax.random.key(seed))
+    v = jax.tree.map(lambda w: w * 0.5, velocity_init(k1, cfg))
+    b = get_base(domain).init(k2)
+    rng = np.random.default_rng(seed)
+    omega = np.stack([rng.uniform(0.1, 1.4, n), rng.uniform(-3.0, 3.0, n)], -1).astype(np.float32)
+    return SimpleNamespace(
+        cfg=cfg, v=v, b=b, tv=params_from_jax(v, "cpu"), tb=params_from_jax(b, "cpu"),
+        omega=omega, cond=encode_condition(omega, cfg), t_omega=tt(omega),
+        t_cond=t_encode_condition(tt(omega), cfg), rng=rng, n=n)
+
+
+def jax_spherical_draw(key, heads, n: int):
+    """What the JAX spherical base draws from `key` (`base_density.py:92-98`),
+    as (eps_g, u_von, phi): the port takes (eps_g, u_von), or (eps_g, phi)."""
+    from bsdf_diffusion_sampling_tpu.models.von_mises import von_mises_sample
+
+    k_gauss, k_von = jax.random.split(key)
+    eps_g = jax.random.normal(k_gauss, (n,))
+    u_von = jax.random.uniform(k_von, (16, 3, n), minval=1e-7, maxval=1.0 - 1e-7)
+    return tt(eps_g), tt(u_von), tt(von_mises_sample(k_von, heads[2], heads[3]))
+
+
 def soups(meshes, mids):
     """The same meshes as a JAX soup and as a port soup."""
     from bsdf_diffusion_sampling_tpu.render import mesh as jmesh

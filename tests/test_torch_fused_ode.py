@@ -90,7 +90,7 @@ def test_cpu_wrappers_take_the_plain_versions(setup):
     x, pdf, x0 = tfused.fused_sample_pdf_disk(s.w, s.t_cond, T, seed=99)
     want = tfused.sample_pdf_disk_plain(s.w, s.t_cond, T, eps=tfused.philox_normals(99, N))
     torch.testing.assert_close(x0, want[2], rtol=0, atol=0)
-    assert tfused.launches == {"fused_sample_pdf_disk": 0, "fused_pdf_disk": 0}
+    assert not any(tfused.launches.values())
     with pytest.raises(ValueError):
         tfused.fused_sample_pdf_disk(s.w, s.t_cond, T)
 
@@ -102,7 +102,7 @@ def test_non_cuda_device_raises_instead_of_falling_back(setup):
         tfused.fused_sample_pdf_disk(s.w, meta, T, seed=1)
     with pytest.raises(ValueError, match="CUDA"):
         tfused.fused_pdf_disk(s.w, torch.empty((N, 2), device="meta"), meta, T)
-    assert tfused.launches == {"fused_sample_pdf_disk": 0, "fused_pdf_disk": 0}
+    assert not any(tfused.launches.values())
 
 
 def test_prepack_layout(setup):

@@ -105,8 +105,7 @@ def test_disk_base_log_prob_matches_jax():
 
 def test_get_base():
     assert tbd.get_base("disk").domain == "disk"
-    with pytest.raises(NotImplementedError):
-        tbd.get_base("spherical")
+    assert tbd.get_base("spherical").domain == tbd.get_base("sphere_full").domain == "spherical"
     with pytest.raises(ValueError):
         tbd.get_base("cube")
 

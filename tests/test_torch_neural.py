@@ -94,9 +94,10 @@ def test_firefly_filter_matches_jax(setup):
 
 
 def test_make_neural_bsdf_rejects_other_domains(setup):
-    with pytest.raises(NotImplementedError):
-        tneural.make_neural_bsdf("spherical", ModelConfig(domain="spherical"), setup.tv, setup.tb,
-                                 device="cpu")
+    with pytest.raises(ValueError, match="unknown domain"):
+        tneural.make_neural_bsdf("cube", ModelConfig(domain="cube"), setup.tv, setup.tb, device="cpu")
+    with pytest.raises(ValueError, match="spherical velocity net"):  # disk weights for a spherical sampler
+        tneural.make_neural_bsdf("spherical", ModelConfig(domain="spherical"), setup.tv, setup.tb, device="cpu")
 
 
 def _template():

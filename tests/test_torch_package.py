@@ -25,6 +25,8 @@ REPO = PORT_DIR.parent
 RENDER_SLICE = ["native.bvhlib", "native.exr", "render.mesh", "render.bvh8", "render.traverse8",
                 "bsdf.tensorfile", "bsdf.marginal2d", "bsdf.measured", "render.lambert", "render.camera",
                 "render.envmap", "render.scene", "render.integrator", "render.procedural", "cli.render"]
+SPHERICAL_SLICE = ["models.von_mises", "models.base_density", "bsdf.microfacet", "bsdf.principled", "bsdf.rough",
+                   "bsdf.materials", "render.neural", "ops.fused_ode"]
 
 
 def test_import_pulls_in_no_jax():
@@ -42,15 +44,15 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=120, check=True)
     bad, seen = out.stdout.strip().splitlines()
     assert bad == "[]", bad
-    # the render slice's modules are among those imported
-    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}" for m in RENDER_SLICE} <= set(seen.split())
+    # the render and spherical slices' modules are among those imported
+    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}" for m in RENDER_SLICE + SPHERICAL_SLICE} <= set(seen.split())
 
 
 def test_no_source_names_the_jax_package():
     names_pkg = re.compile(r"bsdf_diffusion_sampling_tpu(?!_torch)")
     imports_jax = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     sources = [p for p in PORT_DIR.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
-    assert len(sources) >= 27
+    assert len(sources) >= 35
     for p in sources:
         text = p.read_text()
         assert not names_pkg.search(text), p
@@ -128,6 +130,21 @@ def test_kernel_library_is_keyed_by_source_and_not_built_at_import():
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
     assert not cuda_build._libs  # importing the port loaded no library
     assert cuda_build.library_path("traverse8.cu").name.startswith("traverse8-")
+    for src in ("fused_sph.cu", "fused_transport.cu"):  # K4, K3
+        assert cuda_build.library_path(src).name.startswith(src.split(".")[0] + "-")
+    assert len({cuda_build.library_path(s) for s in ("fused_ode.cu", "fused_sph.cu", "fused_transport.cu")}) == 3
+
+
+def test_cuda_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit of `csrc/*.cuh` rebuilds the CUDA libraries that include it."""
+    for name in ("fused_sph.cu", "ode_mlp.cuh", "bvh_build.cpp"):
+        (tmp_path / name).write_bytes((cuda_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    cu, cpp = cuda_build.library_path("fused_sph.cu"), cuda_build.library_path("bvh_build.cpp")
+    with open(tmp_path / "ode_mlp.cuh", "a") as f:
+        f.write("// edited\n")
+    assert cuda_build.library_path("fused_sph.cu") != cu
+    assert cuda_build.library_path("bvh_build.cpp") == cpp
     # host C++ goes through the same build path, with g++'s flags
     assert cuda_build.library_path("bvh_build.cpp").name.startswith("bvh_build-")
     assert cuda_build._flags("bvh_build.cpp") == cuda_build.HOST_FLAGS

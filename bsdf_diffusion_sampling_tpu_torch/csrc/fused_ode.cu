@@ -4,24 +4,33 @@
 // (pallas_call at :684); K2 replaces `_fused_pdf_kernel` (pallas_call at :1017)
 // with its loops `_disk_ode_loop` and `_disk_pdf_exact_loop`.
 //
-// One thread per sample. Weights (the velocity net and the base heads, 3,220
-// floats at width 32) are staged in shared memory once per block and read as
-// warp-wide broadcasts; the ODE state and its two forward-mode tangent streams
-// live in registers; arithmetic is fp32 FMA on the CUDA cores, no tensor
-// cores. Built without --use_fast_math: the sigmoid uses expf and an IEEE
-// divide. The MLP, the transport and the Philox generator are in
-// ode_mlp.cuh, shared with K3 and K4.
+// K1 runs the velocity MLP on the tensor cores (ode_mlp_tc.cuh). A warp
+// takes 32 samples: one lane a sample for the base heads, the draw and log
+// p0; then two tiles of 16 samples, each sample three rows (primal and two
+// forward-mode tangent streams), through T Euler steps whose two hidden
+// 32 x 32 products run on mma.sync m16n8k8 in 3xTF32 (fp32 accuracy), layer
+// 0 and the output layer on the CUDA cores; one 2x2 det a sample at the
+// end; the MLP's sigmoid is __expf and __frcp_rn. K2 keeps the
+// one-thread-a-sample fp32 MLP of ode_mlp.cuh: the weights (3,220 floats at
+// width 32) in shared memory read as warp-wide broadcasts, state and
+// tangents in registers, the sigmoid expf and an IEEE divide. Built without
+// --use_fast_math.
 //
-// Bound: operations. Per sample K1 does ~27k fp32 MACs against 108 bytes of
-// I/O (K2 exact ~89k MACs against 108 bytes), far above the card's
-// FLOP-per-byte ridge, so the kernel is limited by FMA throughput and by the
-// shared-memory loads that feed it. The design answers that with: the
-// condition's part of the first layer (cond_enc @ W0[3:]) computed once per
-// sample and kept in shared memory; float4 weight loads, each feeding 12 FMAs
-// (primal and two tangents); tangents carried across steps so K1 and the
-// reverse K2 take one 2x2 det at the end (the same function as the product of
-// per-step dets, since det is multiplicative); only width 32 instantiated, so
-// every loop over the net unrolls and the activations stay in registers.
+// Bound: operations. Per sample K1 does ~27k multiply-adds against 108
+// bytes of I/O (K2 exact ~89k against 108 bytes), far above the card's
+// FLOP-per-byte ridge. Of K1's, 2 x 3 x 32 x 32 a step are tensor-core
+// products, 3 passes each: at 495 TFLOP/s TF32 that is ~0.3 ms at 2^20
+// samples, against 0.85 ms for all of K1's work on the fp32 CUDA cores
+// (67 TFLOP/s). What is left on the CUDA cores, ~400 sigmoids a sample,
+// the operand splits and layer 0, is comparable, so neither unit alone
+// bounds the kernel. What limits it is latency: a tile's activations,
+// accumulators and split operands take ~120 registers, ptxas gives 168 a
+// thread (capped at 128 it spills), so 3 blocks of 128 fit an SM, 3 warps a
+// scheduler to hide the mma, shared-load and SFU latencies. PERF.md has its
+// time, registers and blocks an SM. Both kernels take the condition's part of the first layer (cond_enc @ W0[3:])
+// once a sample, and carry the tangents across the steps so K1 and the
+// reverse K2 take one 2x2 det at the end (the same function as the product
+// of per-step dets, since det is multiplicative).
 //
 // Layouts: inputs and outputs are plain row-major (N, d) float32 tensors.
 // Packed weights, float32, each matrix (in, out) row-major as in the JAX
@@ -29,6 +38,7 @@
 // W0 (14, 16), b0 (16), W1 (16, 4), b1 (4).
 
 #include "ode_mlp.cuh"
+#include "ode_mlp_tc.cuh"
 
 namespace {
 
@@ -45,35 +55,34 @@ __device__ __forceinline__ void normal2(uint64_t seed, uint64_t idx, float (&e)[
 }
 
 // K1: base heads -> x0 = loc + eps * exp(ls) -> T forward Euler steps with
-// carried tangents -> pdf = N(x0) / det.
+// carried tangents -> pdf = N(x0) / det. Rows past n run on a zero condition
+// and draw, and store nothing.
 template <int H, int NL, bool PRNG>
 __global__ void __launch_bounds__(BLOCK)
     sample_pdf_disk_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
                            const long long* __restrict__ seed, const float* __restrict__ w,
                            float* __restrict__ x_out, float* __restrict__ pdf_out,
                            float* __restrict__ x0_out, int n, int T) {
-  using N = Net<H, NL, 2>;
-  __shared__ __align__(16) float sw[N::TOTAL];
-  __shared__ float scp[H * BLOCK];
-  stage_weights(sw, w, N::TOTAL);
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
+  using C = ode_tc::TcNet<H, NL, 2>;
+  extern __shared__ __align__(16) float smem[];
+  ode_tc::stage<H, NL, 2>(smem, w);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  const int i = w0 + lane;
+  const bool live = i < n;
 
   float c[CD];
 #pragma unroll
-  for (int k = 0; k < CD; ++k) c[k] = cond[(size_t)i * CD + k];
-  float* cp = scp + threadIdx.x;
-  cond_proj<H, 2>(sw, c, cp);
-  const uint32_t sa = (uint32_t)__cvta_generic_to_shared(sw);
-  const uint32_t ca = (uint32_t)__cvta_generic_to_shared(cp);
+  for (int k = 0; k < CD; ++k) c[k] = live ? cond[(size_t)i * CD + k] : 0.0f;
   float o[4];
-  base_heads(sw + N::VEL, c, o);
+  base_heads(smem + C::BASE, c, o);
   const float loc[2] = {o[0], o[1]}, ls[2] = {o[2], o[3]};
 
-  float e[2];
+  float e[2] = {0.0f, 0.0f};
   if (PRNG) {
     normal2((uint64_t)seed[0], (uint64_t)i, e);
-  } else {
+  } else if (live) {
     e[0] = eps[2 * (size_t)i];
     e[1] = eps[2 * (size_t)i + 1];
   }
@@ -81,11 +90,15 @@ __global__ void __launch_bounds__(BLOCK)
   const float x01 = loc[1] + e[1] * expf(ls[1]);
   const float log_p0 = -LOG_2PI - ls[0] - ls[1] - 0.5f * (e[0] * e[0] + e[1] * e[1]);
 
-  float x0 = x00, x1 = x01, det;
-  transport<H, NL, 2, true>(sa, ca, x0, x1, T, false, det);
-  x_out[2 * (size_t)i] = x0;
-  x_out[2 * (size_t)i + 1] = x1;
-  pdf_out[i] = expf(log_p0) / det;
+  float* st = smem + C::STATE + warp * 32 * ode_tc::ST;
+  st[lane * ode_tc::ST] = x00;
+  st[lane * ode_tc::ST + 1] = x01;
+  __syncwarp();
+  ode_tc::transport_warp<H, NL, 2>(smem, cond, w0, n, T, warp, lane);
+  if (!live) return;
+  x_out[2 * (size_t)i] = st[lane * ode_tc::ST];
+  x_out[2 * (size_t)i + 1] = st[lane * ode_tc::ST + 1];
+  pdf_out[i] = expf(log_p0) / st[lane * ode_tc::ST + 2];
   x0_out[2 * (size_t)i] = x00;
   x0_out[2 * (size_t)i + 1] = x01;
 }
@@ -164,6 +177,8 @@ __global__ void __launch_bounds__(BLOCK)
   x0_out[2 * (size_t)i + 1] = y1;
 }
 
+constexpr size_t K1_SMEM = ode_tc::TcNet<32, 3, 2>::SMEM_FLOATS * sizeof(float);  // 30.8 KB
+
 }  // namespace
 
 extern "C" {
@@ -177,10 +192,10 @@ int bsdf_fused_sample_pdf_disk(const float* cond, const float* eps, const long l
   cudaStream_t s = (cudaStream_t)stream;
   if (eps != nullptr) {
     sample_pdf_disk_kernel<32, 3, false>
-        <<<blocks_for(n), BLOCK, 0, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+        <<<blocks_for(n), BLOCK, K1_SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
   } else {
     sample_pdf_disk_kernel<32, 3, true>
-        <<<blocks_for(n), BLOCK, 0, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+        <<<blocks_for(n), BLOCK, K1_SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
   }
   return (int)cudaGetLastError();
 }
@@ -199,6 +214,14 @@ int bsdf_fused_pdf_disk(const float* x, const float* cond, const float* w, float
         <<<blocks_for(n), BLOCK, 0, s>>>(x, cond, w, pdf, x0, n, T, newton_iters);
   }
   return (int)cudaGetLastError();
+}
+
+// Resources of K1's instantiation `which` (0: eps, 1: Philox): out =
+// {registers, local bytes, blocks an SM, shared bytes}.
+int bsdf_fused_ode_kernel_info(int which, int* out) {
+  if (which == 0) return ode_tc::kernel_info(sample_pdf_disk_kernel<32, 3, false>, K1_SMEM, out);
+  if (which == 1) return ode_tc::kernel_info(sample_pdf_disk_kernel<32, 3, true>, K1_SMEM, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

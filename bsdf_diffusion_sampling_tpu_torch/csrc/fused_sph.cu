@@ -18,25 +18,38 @@
 // r, each clipped to [1e-7, 1 - 1e-7] (`ops/fused_ode.py::philox_spherical_draws`
 // reproduces the stream in numpy).
 //
+// The design is K1's (ode_mlp_tc.cuh): a warp takes 32 samples, one lane a
+// sample for the heads, the draw (the Best-Fisher loop exits a lane at a
+// time; the warp meets again before the transport) and log p0; then two
+// tiles of 16 samples, each sample three rows (primal and two tangent
+// streams), whose three hidden 32 x 32 products a step run on mma.sync
+// m16n8k8 in 3xTF32 (fp32 accuracy); layer 0, its condition part (once a
+// sample) and the output layer on the CUDA cores; one det a sample at the
+// end. The MLP's sigmoid is __expf and __frcp_rn; the base heads' is expf
+// and an IEEE divide, as in the draw's host reproduction.
+//
 // Bound: operations. At width 32 and 4 hidden layers a sample takes ~78k
-// fp32 multiply-adds at T = 8 (3,264 primal and 2 x 3,232 tangent a step)
-// against 36 bytes in and 20 out. The design is K1's: one thread a sample,
-// weights in shared memory read as broadcasts, the condition's part of layer
-// 0 computed once a sample, state and tangents in registers, one det at the
-// end. No tensor cores.
+// multiply-adds at T = 8 (3,264 primal and 2 x 3,232 tangent a step)
+// against 36 bytes in and 20 out: 2.47 ms at 2^20 samples on the fp32 CUDA
+// cores (67 TFLOP/s). The 72k of them that are hidden products run 3 passes
+// on the tensor cores, ~0.9 ms at 495 TFLOP/s TF32; the ~1,040 sigmoids a
+// sample, the operand splits and layer 0 stay on the CUDA cores and cost as
+// much, so neither unit alone bounds the kernel. As for K1, latency limits
+// it: 168 registers a thread, 3 blocks of 128 an SM (fused_ode.cu). PERF.md
+// has its time, registers and blocks an SM.
 
 #include "ode_mlp.cuh"
+#include "ode_mlp_tc.cuh"
 
 namespace {
 
 using namespace ode;
 constexpr int H = 32, NL = 4, XE = 3;
-using N = Net<H, NL, XE>;
 constexpr float EPS_SPH = 1e-3f;  // base_density._EPS_SPHERICAL
 constexpr int VM_ROUNDS = 16;
 constexpr int WORDS = 2 + 3 * VM_ROUNDS;    // Box-Muller pair + 16 rounds of 3
 constexpr int BLOCKS = (WORDS + 3) / 4;     // Philox blocks a sample
-constexpr int SMEM_FLOATS = N::TOTAL + H * BLOCK;
+constexpr size_t SMEM = ode_tc::TcNet<H, NL, XE>::SMEM_FLOATS * sizeof(float);  // 39.1 KB
 
 // A&S 9.8.1 / 9.8.2 (models/von_mises.py)
 __device__ __forceinline__ float log_i0(float x) {
@@ -92,31 +105,30 @@ __device__ __forceinline__ float von_mises(const uint32_t (&wd)[4 * BLOCKS], flo
   return floor_mod(sel + loc + PI, TWO_PI) - PI;
 }
 
+// Rows past n run on a zero condition and draw, and store nothing.
 template <bool PRNG>
 __global__ void __launch_bounds__(BLOCK)
     sample_pdf_sph_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
                           const long long* __restrict__ seed, const float* __restrict__ w,
                           float* __restrict__ x_out, float* __restrict__ pdf_out, float* __restrict__ x0_out,
                           int n, int T) {
+  using C = ode_tc::TcNet<H, NL, XE>;
   extern __shared__ __align__(16) float smem[];
-  float* sw = smem;
-  float* scp = smem + N::TOTAL;
-  stage_weights(sw, w, N::TOTAL);
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
+  ode_tc::stage<H, NL, XE>(smem, w);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  const int i = w0 + lane;
+  const bool live = i < n;
 
   float c[CD];
 #pragma unroll
-  for (int k = 0; k < CD; ++k) c[k] = cond[(size_t)i * CD + k];
-  float* cp = scp + threadIdx.x;
-  cond_proj<H, XE>(sw, c, cp);
-  const uint32_t sa = (uint32_t)__cvta_generic_to_shared(sw);
-  const uint32_t ca = (uint32_t)__cvta_generic_to_shared(cp);
+  for (int k = 0; k < CD; ++k) c[k] = live ? cond[(size_t)i * CD + k] : 0.0f;
   float o[4];
-  base_heads(sw + N::VEL, c, o);
+  base_heads(smem + C::BASE, c, o);
   const float loc_t = o[0], ls = o[1], loc_p = o[2], conc = softplus(o[3]) + EPS_SPH;
 
-  float eps_g, phi0;
+  float eps_g = 0.0f, phi0 = 0.0f;
   if (PRNG) {
     const uint64_t s = (uint64_t)seed[0];
     uint32_t wd[4 * BLOCKS];
@@ -129,7 +141,7 @@ __global__ void __launch_bounds__(BLOCK)
     }
     eps_g = box_muller(wd[0], wd[1]);
     phi0 = von_mises(wd, loc_p, conc);
-  } else {
+  } else if (live) {
     eps_g = eps[2 * (size_t)i];
     phi0 = eps[2 * (size_t)i + 1];
   }
@@ -138,11 +150,15 @@ __global__ void __launch_bounds__(BLOCK)
   const float log_p0 = -0.5f * LOG_2PI - ls - 0.5f * eps_g * eps_g + kap * cosf(phi0 - loc_p) - LOG_2PI -
                        log_i0(kap);
 
-  float s0 = theta0, s1 = phi0, det;
-  transport<H, NL, XE, true>(sa, ca, s0, s1, T, false, det);
-  x_out[2 * (size_t)i] = s0;
-  x_out[2 * (size_t)i + 1] = s1;
-  pdf_out[i] = expf(log_p0) / det;
+  float* st = smem + C::STATE + warp * 32 * ode_tc::ST;
+  st[lane * ode_tc::ST] = theta0;
+  st[lane * ode_tc::ST + 1] = phi0;
+  __syncwarp();
+  ode_tc::transport_warp<H, NL, XE>(smem, cond, w0, n, T, warp, lane);
+  if (!live) return;
+  x_out[2 * (size_t)i] = st[lane * ode_tc::ST];
+  x_out[2 * (size_t)i + 1] = st[lane * ode_tc::ST + 1];
+  pdf_out[i] = expf(log_p0) / st[lane * ode_tc::ST + 2];
   x0_out[2 * (size_t)i] = theta0;
   x0_out[2 * (size_t)i + 1] = phi0;
 }
@@ -158,13 +174,20 @@ int bsdf_fused_sample_pdf_spherical(const float* cond, const float* eps, const l
                                     void* stream) {
   if (hidden != H || layers != NL || n <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = SMEM_FLOATS * sizeof(float);
   if (eps != nullptr) {
-    sample_pdf_sph_kernel<false><<<blocks_for(n), BLOCK, smem, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+    sample_pdf_sph_kernel<false><<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
   } else {
-    sample_pdf_sph_kernel<true><<<blocks_for(n), BLOCK, smem, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+    sample_pdf_sph_kernel<true><<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
   }
   return (int)cudaGetLastError();
+}
+
+// Resources of instantiation `which` (0: eps, 1: Philox): out = {registers,
+// local bytes, blocks an SM, shared bytes}.
+int bsdf_fused_sph_kernel_info(int which, int* out) {
+  if (which == 0) return ode_tc::kernel_info(sample_pdf_sph_kernel<false>, SMEM, out);
+  if (which == 1) return ode_tc::kernel_info(sample_pdf_sph_kernel<true>, SMEM, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
 // Device code shared by the fused ODE kernels (fused_ode.cu: K1, K2;
 // fused_sph.cu: K4; fused_transport.cu: K3): the velocity MLP with its two
 // forward-mode tangent streams, the base-density heads, the Euler transport
-// and the in-kernel Philox generator.
+// and the in-kernel Philox generator. K1 and K4 take the heads, Philox and
+// the state encoding from here and run their MLP and transport on the tensor
+// cores (ode_mlp_tc.cuh).
 //
-// One thread per sample. The packed weights are staged in shared memory once
-// per block and read as warp-wide broadcasts; the ODE state and its tangents
-// live in registers; arithmetic is fp32 FMA on the CUDA cores.
+// The MLP here runs one thread per sample. The packed weights are staged in
+// shared memory once per block and read as warp-wide broadcasts; the ODE
+// state and its tangents live in registers; arithmetic is fp32 FMA on the
+// CUDA cores.
 //
 // Domains differ only in how the state x = (x0, x1) enters the net: the
 // disk net reads x as it is (XE = 2 input columns), the spherical nets read

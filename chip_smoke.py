@@ -9,15 +9,22 @@ toolkit (`nvcc`):
 
 Phases, each of which raises on failure:
   1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`,
-     one nvcc per source, all started together;
-  2. print the card's name and power limit; turn TF32 off;
+     one nvcc per source, all started together; print each kernel's ptxas
+     lines and its tensor-core instructions (HMMA, HGMMA) counted in the
+     library's SASS by `cuobjdump`; K1 and K4 must have the three passes
+     of 3xTF32 (a whole number of hidden layers of them) and spill nothing;
+  2. print the card's name and power limit, and the registers, local bytes
+     and blocks an SM of each K1 and K4 instantiation; turn TF32 off
+     (the plain versions run in full fp32);
   3. make full-width weights from a numpy seed (disk 3 x 32; spherical
      4 x 32 and its 6 x 64 teacher), write them with the port's `.npz`
      writer, read them back, and build the neural BSDFs;
   4. hold K1, K2 and K4 against their plain PyTorch versions on the card, at
      2^20 rows and at 2^20 - 37 (a partly masked block), K4 from explicit
-     eps and from its in-kernel draw; hold K3 against its plain version in
-     every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
+     eps and from its in-kernel draw; K1 and K4 again, to the same
+     tolerances, on weights that move x by O(1), where single-pass TF32
+     products would show; hold K3 against its plain
+     version in every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
      reverse, with and without the det, at 2^20; spherical 6 x 64 primal
      at T = 128 and disk primal at T = 256, at 2^16;
   5. write the procedural matpreview-size scene (61,648 triangles,
@@ -48,6 +55,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -130,12 +138,33 @@ TOL_SPH_PDF_REL = 2e-4
 TOL_DRAW_PHI = 1e-3
 MIN_DRAW_MATCH = 0.9999
 
-# Published dense fp32 (CUDA-core) rates and memory rates, by card.
+# Published dense rates by card: fp32 on the CUDA cores, memory, and TF32
+# on the tensor cores (`bound_tf32_ms`).
 PEAKS = {  # name fragment: (fp32 FLOP/s, bytes/s)
     "PCIe": (51.2e12, 2.0e12),
     "NVL": (60e12, 3.9e12),
     "H100": (67e12, 3.35e12),  # SXM
 }
+TF32_PEAKS = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
+# The kernels whose MLP runs on the tensor cores (K1, K4), by library: the
+# marker of their kernels' names, and the precision of their products.
+TC_KERNELS = {"fused_ode.cu": "sample_pdf_disk_kernel", "fused_sph.cu": "sample_pdf_sph_kernel"}
+PRECISION = {"fused_sample_pdf_disk": "3xtf32", "fused_sample_pdf_spherical": "3xtf32"}
+# The mma.sync of one hidden 32 x 32 layer of K1 and K4: 3 passes (lo*hi,
+# hi*lo, hi*hi) x 3 streams (primal, two tangents) x 4 n8 tiles x 4 k8
+# chunks. The layer loop is not unrolled, so each kernel's SASS holds a
+# whole multiple of it; a dropped pass leaves 96 or 48.
+HMMA_A_LAYER = 3 * 3 * (32 // 8) ** 2
+# Velocity weights that move x by O(1) (uniform, variance 1.5^2 / fan-in;
+# tests/test_torch_tc_precision.py). The chip's other weights move x by
+# ~1e-3 only, where even single-pass TF32 products hold the gates; on these
+# they would miss them by ~100x (the CPU emulation), so K1 and K4 are held
+# to their gates on these too.
+STRONG_SCALE = 1.5 * math.sqrt(3.0)
+
+
+def tf32_peak(name: str) -> float:
+    return next(v for k, v in TF32_PEAKS.items() if k in name)
 
 
 def log(msg: str) -> None:
@@ -146,10 +175,10 @@ SPH_CFG = render_cli.model_cfg("spherical")  # 4 x 32
 TEACHER_CFG = ModelConfig(domain="spherical", velocity_hidden=64, velocity_layers=6)
 
 
-def init_weights(seed: int, cfg: ModelConfig, teacher: ModelConfig | None = None) -> dict:
+def init_weights(seed: int, cfg: ModelConfig, teacher: ModelConfig | None = None, v_scale: float = 0.5) -> dict:
     """Full-width weights for `cfg`, Kaiming-uniform as the JAX package's
-    `models/mlp.py:21-38` draws them; velocity weights scaled by 0.5 so the
-    Euler map stays invertible, as the JAX tests do."""
+    `models/mlp.py:21-38` draws them; velocity weights scaled by `v_scale`,
+    0.5 so the Euler map stays invertible, as the JAX tests do."""
     rng = np.random.default_rng(seed)
 
     def layers(dims, bias, scale=1.0):
@@ -166,7 +195,7 @@ def init_weights(seed: int, cfg: ModelConfig, teacher: ModelConfig | None = None
         return [c.velocity_in_dim] + [c.velocity_hidden] * c.velocity_layers + [2]
 
     b_dims = [2 * (2 * cfg.base_pe_bands + 1), cfg.base_hidden, 4]
-    tree = {"base": {"net": layers(b_dims, True)}, "rectified": layers(v_dims(cfg), False, 0.5)}
+    tree = {"base": {"net": layers(b_dims, True)}, "rectified": layers(v_dims(cfg), False, v_scale)}
     if teacher is not None:
         tree["teacher"] = layers(v_dims(teacher), False, 0.5)
     return tree
@@ -312,6 +341,40 @@ def check_spherical(nb, device, n: int) -> dict:
     require(k4p["phi0_in_range"], "K4 phi0 outside [-pi, pi)")
     return {"max_abs_err": max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]),
             "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"])}
+
+
+def check_strong(device) -> dict:
+    """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN, on
+    velocity weights that move x by O(1), to the gates of check_kernels and
+    check_spherical. Products rounded to single-pass TF32 would miss them
+    (~1e-3 in x on the CPU emulation)."""
+    sc = SamplerConfig()
+    rng = np.random.default_rng(SEED + 16)
+    wi = hemisphere(torch.from_numpy(rng.random((N_MAIN, 2), dtype=np.float32)).to(device))
+    gauss = rng.standard_normal((N_MAIN, 2)).astype(np.float32)
+    phi = rng.uniform(-math.pi, math.pi, N_MAIN).astype(np.float32)
+    out = {}
+    for k, label, cfg, prepack, T, fused, plain, tol_x, tol_pdf in (
+            ("fused_sample_pdf_disk", "K1", ModelConfig(), fo.prepack_disk, sc.T_disk, fo.fused_sample_pdf_disk,
+             fo.sample_pdf_disk_plain, TOL_X_ABS, TOL_PDF_REL),
+            ("fused_sample_pdf_spherical", "K4", SPH_CFG, fo.prepack_spherical, sc.T_spherical,
+             fo.fused_sample_pdf_spherical, fo.sample_pdf_spherical_plain, TOL_SPH_X_ABS, TOL_SPH_PDF_REL)):
+        tree = init_weights(SEED + 200, cfg, v_scale=STRONG_SCALE)
+        w = prepack(params_from_jax(tree["rectified"], device), params_from_jax(tree["base"], device))
+        cond = encode_condition(wi[:, :2] if cfg.domain == "disk" else cart_to_spher(wi), cfg)
+        eps = torch.from_numpy(gauss if cfg.domain == "disk" else np.stack([gauss[:, 0], phi], -1)).to(device)
+        x, pdf, x0 = fused(w, cond, T, eps=eps)
+        xp, pdfp, x0p = plain(w, cond, T, eps=eps)
+        r = {"x_moved_max": max_abs(xp, x0p), "x_abs": max_abs(x, xp), "x0_abs": max_abs(x0, x0p),
+             "pdf_rel": max_rel(pdf, pdfp), "det_sign_flips": int((pdfp <= 0).sum())}
+        log(f"  {label} on O(1)-moving weights vs plain: {r}")
+        for name, t in (("x", x), ("pdf", pdf), ("x0", x0)):
+            require(bool(torch.isfinite(t).all()), f"non-finite {label} output {name} on O(1)-moving weights")
+        require(r["x_moved_max"] >= 1.0, f"{label}: the O(1)-moving weights moved x by {r['x_moved_max']} only")
+        require(max(r["x_abs"], r["x0_abs"]) <= tol_x, f"{label} x/x0 differs from plain on O(1)-moving weights")
+        require(r["pdf_rel"] <= tol_pdf, f"{label} pdf differs from plain on O(1)-moving weights")
+        out[k] = {"max_abs_err": max(r["x_abs"], r["x0_abs"]), "max_rel_err": r["pdf_rel"]}
+    return out
 
 
 def k3_cases(nb_disk, nb_sph, teacher, device) -> list:
@@ -532,6 +595,7 @@ def times(nb, device, name: str) -> dict:
             plain_ms = cuda_ms(plain, runs=5, warmup=1)
         out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                  "bound_tf32_ms": 2.0 * macs / tf32_peak(name) * 1e3,
                   "meval_per_s": N_MAIN / ms / 1e3, "flop": 2 * macs, "bytes": nbytes}
         log(f"time {k}: {out[k]}")
     # one whole bounce as the main path runs it: the kernels plus the
@@ -558,7 +622,8 @@ def timed(label: str, kern, plain, macs: int, nbytes: int, n: int, name: str, pl
     with torch.no_grad():
         plain_ms = cuda_ms(plain, runs=plain_runs, warmup=1)
     r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "meval_per_s": n / ms / 1e3,
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "bound_tf32_ms": 2.0 * macs / tf32_peak(name) * 1e3, "meval_per_s": n / ms / 1e3,
          "flop": 2 * macs, "bytes": nbytes, "n": n}
     log(f"time {label}: {r}")
     return r
@@ -629,6 +694,7 @@ def time_traverse(accel, cam, device, name: str) -> dict:
         log(f"time traverse8 {set_name}: {out[set_name]}")
     tot = {k: sum(v[k] for v in out.values()) for k in ("ms", "plain_ms", "t_ops_ms", "t_bytes_ms")}
     tot["bound_ms"] = max(tot["t_ops_ms"], tot["t_bytes_ms"])
+    tot["bound_tf32_ms"] = None  # no matrix product
     tot["bound_by"] = "operations" if tot["t_ops_ms"] >= tot["t_bytes_ms"] else "bytes"
     log(f"time traverse8, the four sets together: {tot}")
     return tot
@@ -800,6 +866,64 @@ SOURCES = {"fused_sample_pdf_disk": "fused_ode.cu", "fused_pdf_disk": "fused_ode
            "fused_transport": "fused_transport.cu"}
 
 
+def count_opcodes(sass: str, opcodes: tuple = ("HMMA", "HGMMA")) -> dict:
+    """{kernel (mangled name): {opcode: count}} in `cuobjdump -sass` output:
+    the lines of each `Function :` section whose instruction is one of
+    `opcodes`."""
+    pats = {op: re.compile(rf"\b{op}\b") for op in opcodes}
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op, pat in pats.items():
+                counts[fn][op] += bool(pat.search(line))
+    return counts
+
+
+def ptxas_spills(log_text: str) -> dict:
+    """{kernel (mangled name): (stack bytes, spill store bytes, spill load
+    bytes)} from the `-Xptxas -v` lines of a build log."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            out[fn] = tuple(int(v) for v in m.groups())
+            fn = None
+    return out
+
+
+def tensor_core_evidence(libs: dict) -> None:
+    """Phase 1: the tensor-core instructions (HMMA, HGMMA) of each CUDA
+    library's kernels, counted in its SASS; each K1 and K4 instantiation
+    must hold a nonzero whole multiple of HMMA_A_LAYER, and ptxas must
+    report no spill stores for them."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    for src, path in sorted(libs.items()):
+        if not src.endswith(".cu"):
+            continue
+        counts = count_opcodes(subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                                              check=True).stdout)
+        for fn, c in counts.items():
+            log(f"    sass {src}: {fn}: {c}")
+        marker = TC_KERNELS.get(src)
+        if marker is None:
+            continue
+        tc = {fn: c for fn, c in counts.items() if marker in fn}
+        spills = {fn: v for fn, v in ptxas_spills(path.with_suffix(".log").read_text()).items() if marker in fn}
+        require(len(tc) == 2 and all(c["HMMA"] > 0 and c["HMMA"] % HMMA_A_LAYER == 0 for c in tc.values()),
+                f"{src}: a {marker} instantiation lacks the 3xTF32 products of whole hidden layers "
+                f"({HMMA_A_LAYER} HMMA each): {tc}")
+        require(len(spills) == 2 and all(v[1] == 0 for v in spills.values()),
+                f"{src}: ptxas reports spill stores for {marker}: {spills}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check-only", action="store_true", help="stop after the kernel-vs-plain checks")
@@ -817,10 +941,13 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    ptxas {src}: {line.strip()}")
+    tensor_core_evidence(libs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[2] {smi}")
+    for inst, r in fo.kernel_resources().items():
+        log(f"    resources {inst}: {r} (128 threads a block)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("    TF32 off for matmul and cuDNN: the plain versions run in full fp32")
@@ -862,6 +989,8 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         found["fused_sample_pdf_spherical"] = check_spherical(nb_sph["exact"], device, n)
         for k, e in found.items():
             errs[k] = {m: max(v, errs.get(k, {}).get(m, 0.0)) for m, v in e.items()}
+    for k, e in check_strong(device).items():
+        errs[k] = {m: max(v, errs[k][m]) for m, v in e.items()}
     cases = k3_cases(nb, nb_sph["exact"], teacher, device)
     errs["fused_transport"] = check_transport(cases)
     log(f"[4] K1, K2, K4 vs plain at n = {N_MAIN} and {N_RAGGED}, K3 in {len(cases)} instantiations: ok {errs} "
@@ -928,6 +1057,7 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                      "launches": launches[k], "max_abs_err": errs[k]["max_abs_err"],
                      "max_rel_err": errs[k]["max_rel_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                     "bound_tf32_ms": r["bound_tf32_ms"], "precision": PRECISION.get(k, "fp32"),
                      "n": N_MAIN, "n_ragged": N_RAGGED})
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
     log(f"[10] total {time.time() - t_start:.1f} s")

@@ -3,6 +3,7 @@ JAX package), keeps its own copy of the pure-Python config, runs on the
 card unless asked for the CPU, and builds no kernel at import."""
 
 import dataclasses
+import importlib.util
 import os
 import re
 import subprocess
@@ -148,3 +149,31 @@ def test_cuda_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     # host C++ goes through the same build path, with g++'s flags
     assert cuda_build.library_path("bvh_build.cpp").name.startswith("bvh_build-")
     assert cuda_build._flags("bvh_build.cpp") == cuda_build.HOST_FLAGS
+
+
+def test_build_log_and_sass_parsers():
+    """The parsers behind chip_smoke.py's spill and tensor-core checks."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = """ptxas info    : Compiling entry function '_Z2k1v' for 'sm_90a'
+ptxas info    : Function properties for _Z2k1v
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z2k2v' for 'sm_90a'
+ptxas info    : Function properties for _Z2k2v
+    72 bytes stack frame, 68 bytes spill stores, 208 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 72 bytes cumulative stack size
+"""
+    assert smoke.ptxas_spills(log) == {"_Z2k1v": (32, 0, 0), "_Z2k2v": (72, 68, 208)}
+    sass = """
+        Function : _Z2k1v
+        /*0a30*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0a40*/                   HMMA.1688.F32.TF32 R16, R8, R20, R16 ;
+        /*0a50*/                   FFMA R1, R2, R3, R1 ;
+        Function : _Z2k2v
+        /*0010*/                   HGMMA.64x32x8.F32.TF32 gdesc[UR4], RZ, !UPT ;
+"""
+    assert smoke.count_opcodes(sass) == {"_Z2k1v": {"HMMA": 2, "HGMMA": 0}, "_Z2k2v": {"HMMA": 0, "HGMMA": 1}}
+    # a K1/K4 instantiation's count: whole hidden layers of 3 passes x 3 streams x 4 x 4 tiles
+    assert smoke.HMMA_A_LAYER == 144

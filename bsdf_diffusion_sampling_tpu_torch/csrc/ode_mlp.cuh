@@ -1,9 +1,10 @@
 // Device code shared by the fused ODE kernels (fused_ode.cu: K1, K2;
 // fused_sph.cu: K4; fused_transport.cu: K3): the velocity MLP with its two
 // forward-mode tangent streams, the base-density heads, the Euler transport
-// and the in-kernel Philox generator. K1 and K4 take the heads, Philox and
-// the state encoding from here and run their MLP and transport on the tensor
-// cores (ode_mlp_tc.cuh).
+// and the in-kernel Philox generator. K1, K4 and K3 take the heads, Philox,
+// the state encoding and the shared-memory reads from here and run their
+// MLP and transport on the tensor cores (ode_mlp_tc.cuh); the scalar MLP
+// and transport below serve K2 alone.
 //
 // The MLP here runs one thread per sample. The packed weights are staged in
 // shared memory once per block and read as warp-wide broadcasts; the ODE

@@ -1,14 +1,16 @@
 // Tensor-core velocity MLP and Euler transport for the sample+pdf kernels
-// (fused_ode.cu: K1; fused_sph.cu: K4). K2 and K3 keep ode_mlp.cuh's
-// one-thread-a-sample MLP.
+// (fused_ode.cu: K1; fused_sph.cu: K4) and the generic transport
+// (fused_transport.cu: K3). K2 keeps ode_mlp.cuh's one-thread-a-sample MLP.
 //
 // Tile. A warp runs 32 samples: one lane a sample for the per-sample scalar
 // work (base heads, draw, log p0, det, stores), then two tiles of 16 samples
-// for the transport. In a tile each sample is three rows, its primal
-// activations and its two forward-mode tangent streams, held at the same
-// fragment position of three m16 x 32 tiles (P, G0, G1): row r of each is
-// sample r of the tile. Lane (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8, columns 8 nn + 2 t and 8 nn + 2 t + 1 of each n8 tile nn: the
+// for the transport. In a tile each sample is S rows: with the det (S = 3)
+// its primal activations and its two forward-mode tangent streams, held at
+// the same fragment position of three m16 x H tiles (P, G0, G1); without it
+// (S = 1, K3's primal transports) the primal tile alone, with no silu'
+// products and no det. Row r of each tile is sample r of the tile. Lane
+// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 8 nn + 2 t
+// and 8 nn + 2 t + 1 of each n8 tile nn: the
 // accumulator layout of mma.m16n8k8 (c0, c1 row g; c2, c3 row g + 8). So
 // silu(z) and silu'(z) * t of one unit are register-local, and the state
 // (x, and the 2 x 2 tangent matrix m) of rows g and g + 8 is kept by the
@@ -33,6 +35,12 @@
 // registers. Single-pass TF32 keeps ~3 decimal digits and would miss the
 // kernels' gates.
 //
+// Steps: forward (alpha = t/T, x += v/T) or reverse (alpha = 1 - t/T,
+// x -= v/T, the tangents likewise), a runtime flag, as ode_mlp.cuh's
+// `transport`. Width H = 8 NT: 32 (NT = 4) or 64 (NT = 8). A hidden layer
+// is 3 x S x NT^2 mma.sync: 144 at width 32 with the det, 48 without it,
+// 192 at width 64 without it.
+//
 // Thin layers stay on the CUDA cores, written straight into the
 // accumulator layout: layer 0's x columns and alpha (K = XE + 1) plus the
 // condition's part cp (computed once a sample, kept in the warp's shared
@@ -51,27 +59,29 @@ namespace ode_tc {
 
 using namespace ode;
 
-constexpr int WARPS = BLOCK / 32;
+constexpr int WARPS = BLOCK / 32;  // warps a block, unless a kernel asks for more
 constexpr int TILE = 16;          // samples a tile: the rows of an m16 tile
 constexpr int TILES = 32 / TILE;  // tiles a warp
 constexpr int ST = 3;             // floats a sample in the warp's state tile: x (or x0) and det
 
-// Shared memory of a block, in floats: W0 (IN, H), W_out (H, 2) and the
-// base heads row-major as packed; the hidden layers in fragment order; per
-// warp, one tile's cp in accumulator order and the 32 samples' state.
-template <int H, int NL, int XE>
+// Shared memory of a block of NW warps, in floats: W0 (IN, H), W_out (H, 2)
+// and, with HEADS, the base heads row-major as packed; the hidden layers in
+// fragment order; per warp, one tile's cp in accumulator order and the 32
+// samples' state.
+template <int H, int NL, int XE, bool HEADS = true, int NW = WARPS>
 struct TcNet {
   using N = Net<H, NL, XE>;
   static_assert(H % 8 == 0, "hidden width must be a multiple of 8");
   static constexpr int NT = H / 8;                         // n8 tiles of an output = k8 chunks of an input
+  static constexpr int THREADS = 32 * NW;
   static constexpr int WOUT = N::IN * H;
   static constexpr int BASE = WOUT + 2 * H;
-  static constexpr int FRAG = (BASE + BASE_FLOATS + 3) / 4 * 4;
+  static constexpr int FRAG = (BASE + (HEADS ? BASE_FLOATS : 0) + 3) / 4 * 4;
   static constexpr int FRAG_LAYER = NT * NT * 32 * 4;      // hi and lo of b0, b1, each lane, each (kk, nn)
   static constexpr int CP = FRAG + (NL - 1) * FRAG_LAYER;
   static constexpr int CP_WARP = NT * 32 * 4;
-  static constexpr int STATE = CP + WARPS * CP_WARP;
-  static constexpr int SMEM_FLOATS = STATE + WARPS * 32 * ST;
+  static constexpr int STATE = CP + NW * CP_WARP;
+  static constexpr int SMEM_FLOATS = STATE + NW * 32 * ST;
   static_assert(WOUT % 4 == 0 && FRAG % 4 == 0, "float4 reads need 16-byte offsets");
 };
 
@@ -96,16 +106,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Block-wide staging of the packed weights (see ode_mlp.cuh) into `s`.
-template <int H, int NL, int XE>
+// Block-wide staging of the packed weights (see ode_mlp.cuh) into `s`;
+// without HEADS the pack ends at W_out (K3's velocity-only pack).
+template <int H, int NL, int XE, bool HEADS = true, int NW = WARPS>
 __device__ __forceinline__ void stage(float* s, const float* __restrict__ w) {
   using N = Net<H, NL, XE>;
-  using C = TcNet<H, NL, XE>;
-  constexpr int NT = C::NT;
-  for (int k = threadIdx.x; k < N::WH; k += BLOCK) s[k] = w[k];
-  for (int k = threadIdx.x; k < 2 * H + BASE_FLOATS; k += BLOCK) s[C::WOUT + k] = w[N::WO + k];
+  using C = TcNet<H, NL, XE, HEADS, NW>;
+  constexpr int NT = C::NT, TH = C::THREADS;
+  for (int k = threadIdx.x; k < N::WH; k += TH) s[k] = w[k];
+  for (int k = threadIdx.x; k < 2 * H + (HEADS ? BASE_FLOATS : 0); k += TH) s[C::WOUT + k] = w[N::WO + k];
   float4* frag = reinterpret_cast<float4*>(s + C::FRAG);
-  for (int e = threadIdx.x; e < (NL - 1) * NT * NT * 32; e += BLOCK) {
+  for (int e = threadIdx.x; e < (NL - 1) * NT * NT * 32; e += TH) {
     const int lane = e & 31, f = e >> 5;  // f = (l NT + kk) NT + nn
     const int nn = f % NT, kk = (f / NT) % NT, l = f / (NT * NT);
     const int g = lane >> 2, t = lane & 3;
@@ -149,12 +160,14 @@ __device__ __forceinline__ void cond_proj_tile(const float* s, const float* __re
 }
 
 // Layer 0 on the CUDA cores into the accumulator layout: a[0] = silu(z),
-// a[1 + k] = silu'(z) * (mi[k] . W0[:XE]), z = x_enc . W0[:XE] + alpha
-// W0[XE] + cp. Element q of a tile is row g + 8 (q >> 1), column c + (q & 1).
-template <int H, int XE>
+// a[1 + k] = silu'(z) * (mi[k] . W0[:XE]) (S = 3 only; mi is not read at
+// S = 1), z = x_enc . W0[:XE] + alpha W0[XE] + cp. Element q of a tile is
+// row g + 8 (q >> 1), column c + (q & 1).
+template <int H, int XE, int S>
 __device__ __forceinline__ void layer0_tile(uint32_t sa, uint32_t cpa, const float (&xe)[2][XE],
-                                            const float (&mi)[2][2][XE], float alpha, float (&a)[3][H / 8][4],
+                                            const float (&mi)[2][2][XE], float alpha, float (&a)[S][H / 8][4],
                                             int lane) {
+  static_assert(S == 1 || S == 3, "a tile carries the primal stream, or it and two tangent streams");
   constexpr int NT = H / 8;
   const int t = lane & 3;
 #pragma unroll
@@ -172,38 +185,40 @@ __device__ __forceinline__ void layer0_tile(uint32_t sa, uint32_t cpa, const flo
       float z = fmaf(alpha, e ? wa.y : wa.x, cpv[q]);
 #pragma unroll
       for (int k = XE - 1; k >= 0; --k) z = fmaf(xe[r][k], e ? wx[k].y : wx[k].x, z);
-      const float wl = e ? wx[XE - 1].y : wx[XE - 1].x;
-      float t0 = mi[r][0][XE - 1] * wl, t1 = mi[r][1][XE - 1] * wl;
-#pragma unroll
-      for (int k = XE - 2; k >= 0; --k) {
-        const float wk = e ? wx[k].y : wx[k].x;
-        t0 = fmaf(mi[r][0][k], wk, t0);
-        t1 = fmaf(mi[r][1][k], wk, t1);
-      }
       const float s = sigmoid_fast(z);
-      const float d = s * (1.0f + z * (1.0f - s));
       a[0][nn][q] = z * s;
-      a[1][nn][q] = d * t0;
-      a[2][nn][q] = d * t1;
+      if constexpr (S == 3) {
+        const float wl = e ? wx[XE - 1].y : wx[XE - 1].x;
+        float t0 = mi[r][0][XE - 1] * wl, t1 = mi[r][1][XE - 1] * wl;
+#pragma unroll
+        for (int k = XE - 2; k >= 0; --k) {
+          const float wk = e ? wx[k].y : wx[k].x;
+          t0 = fmaf(mi[r][0][k], wk, t0);
+          t1 = fmaf(mi[r][1][k], wk, t1);
+        }
+        const float d = s * (1.0f + z * (1.0f - s));
+        a[1][nn][q] = d * t0;
+        a[2][nn][q] = d * t1;
+      }
     }
   }
 }
 
 // One hidden layer on the tensor cores, in place: a <- silu(a W) for the
-// primal tile, silu'(a_P W) * (a_k W) for the tangent tiles. `fl`: shared
-// address of the layer's fragments plus this lane's 16 bytes.
-template <int NT>
-__device__ __forceinline__ void hidden_tc(uint32_t fl, float (&a)[3][NT][4]) {
-  float z[3][NT][4];
+// primal tile, silu'(a_P W) * (a_k W) for the tangent tiles (S = 3). `fl`:
+// shared address of the layer's fragments plus this lane's 16 bytes.
+template <int NT, int S>
+__device__ __forceinline__ void hidden_tc(uint32_t fl, float (&a)[S][NT][4]) {
+  float z[S][NT][4];
 #pragma unroll
-  for (int s = 0; s < 3; ++s)
+  for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int nn = 0; nn < NT; ++nn) z[s][nn][0] = z[s][nn][1] = z[s][nn][2] = z[s][nn][3] = 0.0f;
 #pragma unroll
   for (int kk = 0; kk < NT; ++kk) {
-    uint32_t ah[3][4], al[3][4];
+    uint32_t ah[S][4], al[S][4];
 #pragma unroll
-    for (int s = 0; s < 3; ++s) {
+    for (int s = 0; s < S; ++s) {
       const float av[4] = {a[s][kk][0], a[s][kk][2], a[s][kk][1], a[s][kk][3]};  // (c0, c2, c1, c3)
 #pragma unroll
       for (int q = 0; q < 4; ++q) split(av[q], ah[s][q], al[s][q]);
@@ -214,7 +229,7 @@ __device__ __forceinline__ void hidden_tc(uint32_t fl, float (&a)[3][NT][4]) {
       const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
       const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
 #pragma unroll
-      for (int s = 0; s < 3; ++s) {
+      for (int s = 0; s < S; ++s) {
         mma_tf32(z[s][nn], al[s], bh0, bh1);
         mma_tf32(z[s][nn], ah[s], bl0, bl1);
         mma_tf32(z[s][nn], ah[s], bh0, bh1);
@@ -227,26 +242,28 @@ __device__ __forceinline__ void hidden_tc(uint32_t fl, float (&a)[3][NT][4]) {
     for (int q = 0; q < 4; ++q) {
       const float zp = z[0][nn][q];
       const float s = sigmoid_fast(zp);
-      const float d = s * (1.0f + zp * (1.0f - s));
       a[0][nn][q] = zp * s;
-      a[1][nn][q] = d * z[1][nn][q];
-      a[2][nn][q] = d * z[2][nn][q];
+      if constexpr (S == 3) {
+        const float d = s * (1.0f + zp * (1.0f - s));
+        a[1][nn][q] = d * z[1][nn][q];
+        a[2][nn][q] = d * z[2][nn][q];
+      }
     }
 }
 
 // Output layer (H -> 2) on the CUDA cores: o[stream][row][j] for rows g and
 // g + 8, each lane's partial dot over its columns summed across the quad
 // (every lane of the quad ends with the same sums).
-template <int NT>
-__device__ __forceinline__ void output_tc(uint32_t wo, const float (&a)[3][NT][4], float (&o)[3][2][2], int lane) {
+template <int NT, int S>
+__device__ __forceinline__ void output_tc(uint32_t wo, const float (&a)[S][NT][4], float (&o)[S][2][2], int lane) {
   const int t = lane & 3;
 #pragma unroll
-  for (int s = 0; s < 3; ++s) o[s][0][0] = o[s][0][1] = o[s][1][0] = o[s][1][1] = 0.0f;
+  for (int s = 0; s < S; ++s) o[s][0][0] = o[s][0][1] = o[s][1][0] = o[s][1][1] = 0.0f;
 #pragma unroll
   for (int nn = 0; nn < NT; ++nn) {
     const float4 w4 = lds4(wo + 4 * 2 * (8 * nn + 2 * t));  // W_out[c][0], W_out[c][1], W_out[c + 1][0], [1]
 #pragma unroll
-    for (int s = 0; s < 3; ++s)
+    for (int s = 0; s < S; ++s)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         o[s][r][0] = fmaf(a[s][nn][2 * r + 1], w4.z, fmaf(a[s][nn][2 * r], w4.x, o[s][r][0]));
@@ -254,7 +271,7 @@ __device__ __forceinline__ void output_tc(uint32_t wo, const float (&a)[3][NT][4
       }
   }
 #pragma unroll
-  for (int s = 0; s < 3; ++s)
+  for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -264,57 +281,61 @@ __device__ __forceinline__ void output_tc(uint32_t wo, const float (&a)[3][NT][4
       }
 }
 
-// T forward Euler steps (alpha = t/T, x += v/T) of rows g and g + 8 of one
-// tile, the two tangent streams carried, one 2x2 det at the end, as
-// ode_mlp.cuh's `transport` does for one sample. `sa`: shared address of
-// the block's weights; `ca`: of the warp's cp tile. All 32 lanes must call
-// it together.
-template <int H, int NL, int XE>
+// T Euler steps of rows g and g + 8 of one tile, as ode_mlp.cuh's
+// `transport` does for one sample: forward (alpha = t/T, x += v/T) or,
+// with `reverse`, alpha = 1 - t/T and x -= v/T. With S = 3 the two tangent
+// streams ride along (stepped by the same +-1/T) and one 2x2 det is taken
+// at the end; with S = 1 det is 0. `sa`: shared address of the block's
+// weights; `ca`: of the warp's cp tile. All 32 lanes must call it together.
+template <int H, int NL, int XE, int S = 3, bool HEADS = true, int NW = WARPS>
 __device__ __forceinline__ void transport_tile(uint32_t sa, uint32_t ca, float (&s0)[2], float (&s1)[2], int T,
-                                               float (&det)[2], int lane) {
-  using C = TcNet<H, NL, XE>;
+                                               bool reverse, float (&det)[2], int lane) {
+  using C = TcNet<H, NL, XE, HEADS, NW>;
   constexpr int NT = C::NT;
   const float h = 1.0f / (float)T;
+  const float sg = reverse ? -h : h;
   float m[2][2][2] = {{{1.0f, 0.0f}, {0.0f, 1.0f}}, {{1.0f, 0.0f}, {0.0f, 1.0f}}};
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
     const uint32_t w = fresh(sa), cpa = fresh(ca);
-    const float alpha = (float)t * h;
+    const float alpha = reverse ? 1.0f - (float)t * h : (float)t * h;
     float xe[2][XE], mi[2][2][XE];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       encode<XE>(s0[r], s1[r], xe[r]);
-      encode_tangent<XE>(xe[r], m[r], mi[r]);
+      if constexpr (S == 3) encode_tangent<XE>(xe[r], m[r], mi[r]);
     }
-    float a[3][NT][4];
-    layer0_tile<H, XE>(w, cpa, xe, mi, alpha, a, lane);
+    float a[S][NT][4];
+    layer0_tile<H, XE, S>(w, cpa, xe, mi, alpha, a, lane);
 #pragma unroll 1
-    for (int l = 0; l < NL - 1; ++l) hidden_tc<NT>(w + 4 * (C::FRAG + l * C::FRAG_LAYER) + 16 * lane, a);
-    float o[3][2][2];
-    output_tc<NT>(w + 4 * C::WOUT, a, o, lane);
+    for (int l = 0; l < NL - 1; ++l) hidden_tc<NT, S>(w + 4 * (C::FRAG + l * C::FRAG_LAYER) + 16 * lane, a);
+    float o[S][2][2];
+    output_tc<NT, S>(w + 4 * C::WOUT, a, o, lane);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      if constexpr (S == 3) {
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        m[r][k][0] += h * o[1 + k][r][0];
-        m[r][k][1] += h * o[1 + k][r][1];
+        for (int k = 0; k < 2; ++k) {
+          m[r][k][0] += sg * o[1 + k][r][0];
+          m[r][k][1] += sg * o[1 + k][r][1];
+        }
       }
-      s0[r] += h * o[0][r][0];
-      s1[r] += h * o[0][r][1];
+      s0[r] += sg * o[0][r][0];
+      s1[r] += sg * o[0][r][1];
     }
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) det[r] = m[r][0][0] * m[r][1][1] - m[r][1][0] * m[r][0][1];
+  for (int r = 0; r < 2; ++r) det[r] = S == 3 ? m[r][0][0] * m[r][1][1] - m[r][1][0] * m[r][0][1] : 0.0f;
 }
 
 // The transport of a warp's 32 samples, whose first is `w0`: x0 in and
 // (x, det) out through the warp's state tile `st` (sample j at st[j ST]),
 // one tile of 16 at a time; a tile wholly at or past n is skipped. The
 // caller has written x0 and synced the warp.
-template <int H, int NL, int XE>
+template <int H, int NL, int XE, int S = 3, bool HEADS = true, int NW = WARPS>
 __device__ __forceinline__ void transport_warp(float* smem, const float* __restrict__ cond, int w0, int n, int T,
-                                               int warp, int lane) {
-  using C = TcNet<H, NL, XE>;
+                                               int warp, int lane, bool reverse = false) {
+  using C = TcNet<H, NL, XE, HEADS, NW>;
   float* cpw = smem + C::CP + warp * C::CP_WARP;
   float* st = smem + C::STATE + warp * 32 * ST;
   const uint32_t sa = (uint32_t)__cvta_generic_to_shared(smem);
@@ -331,7 +352,7 @@ __device__ __forceinline__ void transport_warp(float* smem, const float* __restr
       s1[r] = st[j * ST + 1];
     }
     __syncwarp();
-    transport_tile<H, NL, XE>(sa, ca, s0, s1, T, det, lane);
+    transport_tile<H, NL, XE, S, HEADS, NW>(sa, ca, s0, s1, T, reverse, det, lane);
     __syncwarp();
     if ((lane & 3) == 0) {
 #pragma unroll
@@ -346,16 +367,17 @@ __device__ __forceinline__ void transport_warp(float* smem, const float* __restr
   __syncwarp();
 }
 
-// Registers, local bytes and blocks an SM of one kernel at BLOCK threads and
-// `smem` bytes of dynamic shared memory: out = {regs, local bytes, blocks an
-// SM, static + dynamic shared bytes}.
+// Registers, local bytes and blocks an SM of one kernel at `threads` a block
+// and `smem` bytes of dynamic shared memory: out = {regs, local bytes, blocks
+// an SM, static + dynamic shared bytes}. A kernel above 48 KB must have been
+// granted its dynamic shared memory first (cudaFuncSetAttribute).
 template <typename K>
-int kernel_info(K kernel, size_t smem, int* out) {
+int kernel_info(K kernel, size_t smem, int* out, int threads = BLOCK) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BLOCK, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;

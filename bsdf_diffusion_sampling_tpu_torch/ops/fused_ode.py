@@ -21,21 +21,22 @@ The kernels are CUDA C++ (`csrc/fused_ode.cu`, `fused_sph.cu`,
 `fused_transport.cu`), built for `sm_90a` at first use and called through
 `ctypes`. What bounds them on the card: operations. Per sample K1 does
 ~27k multiply-adds against ~110 bytes of I/O, K2 exact ~89k, K4 ~78k, so
-arithmetic is the limit, not device memory. K1 and K4 run the velocity
-MLP on the tensor cores (`csrc/ode_mlp_tc.cuh`): a warp takes two tiles
-of 16 samples, each sample three rows (primal and two tangent streams),
-and the hidden 32 x 32 products run on `mma.sync` m16n8k8 in 3xTF32 (each
-operand split into two TF32 parts, three products: fp32 accuracy); the
-per-sample work (base heads, draw, log p0, det) stays one lane a sample.
-K2 and K3 keep `csrc/ode_mlp.cuh`'s fp32 MLP on the CUDA cores: one thread
-a sample, the weights staged in shared memory once per block and read as
-warp-wide broadcasts, state and both tangent streams in registers. All
-take the condition's part of the first layer once per sample instead of
-once per step. The TPU kernels' lane packing, roll shuffles and output
-compaction, and K3's `interleave` and `tile` scheduling knobs, have no
-counterpart.
+arithmetic is the limit, not device memory. K1, K4 and K3 run the
+velocity MLP on the tensor cores (`csrc/ode_mlp_tc.cuh`): a warp takes two
+tiles of 16 samples, each sample three rows where the det is taken
+(primal and two tangent streams) and one row where it is not (K3's primal
+transports), and the hidden products run on `mma.sync` m16n8k8 in 3xTF32
+(each operand split into two TF32 parts, three products: fp32 accuracy);
+the per-sample work (base heads, draw, log p0, det) stays one lane a
+sample. K2 keeps `csrc/ode_mlp.cuh`'s fp32 MLP on the CUDA cores: one
+thread a sample, the weights staged in shared memory once per block and
+read as warp-wide broadcasts, state and both tangent streams in
+registers. All take the condition's part of the first layer once per
+sample instead of once per step. The TPU kernels' lane packing, roll
+shuffles and output compaction, and K3's `interleave` and `tile`
+scheduling knobs, have no counterpart.
 
-Det: K1 and reverse K2 carry the two tangent streams across the steps and
+Det: K1, K4, K3 and reverse K2 carry the two tangent streams across the steps and
 take one 2x2 det at the end; exact K2 multiplies the forward step dets at
 the Newton points. The plain versions multiply per-step dets
 (`ode/flow.py`). Det is multiplicative, so these are the same function.
@@ -290,21 +291,30 @@ def _lib_transport() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.bsdf_fused_transport.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.bsdf_fused_transport.restype = I
+    lib.bsdf_fused_transport_kernel_info.argtypes = [I, P]
+    lib.bsdf_fused_transport_kernel_info.restype = I
     return lib
+
+
+# K3's instantiations in the order of `bsdf_fused_transport_kernel_info`
+K3_INFO = ("K3 disk 3x32 det", "K3 disk 3x32 primal", "K3 spherical 4x32 det", "K3 spherical 4x32 primal",
+           "K3 spherical 6x64 primal")
 
 
 def kernel_resources() -> dict:
     """{instantiation: {registers, local_bytes, blocks_per_sm, shared_bytes}}
-    of K1 and K4 (each with the eps and the Philox draw) at 128 threads a
-    block, from `cudaFuncGetAttributes` and
-    `cudaOccupancyMaxActiveBlocksPerMultiprocessor` on the current card."""
+    of K1 and K4 (each with the eps and the Philox draw) and of K3's five
+    nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
+    `cudaFuncGetAttributes` and `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
+    on the current card."""
     out = {}
-    for lib, fn, kernel in ((_lib(), "bsdf_fused_ode_kernel_info", "K1"),
-                            (_lib_sph(), "bsdf_fused_sph_kernel_info", "K4")):
-        for which, draw in enumerate(("eps", "philox")):
+    for lib, fn, names in ((_lib(), "bsdf_fused_ode_kernel_info", ("K1 eps", "K1 philox")),
+                           (_lib_sph(), "bsdf_fused_sph_kernel_info", ("K4 eps", "K4 philox")),
+                           (_lib_transport(), "bsdf_fused_transport_kernel_info", K3_INFO)):
+        for which, name in enumerate(names):
             buf = (ctypes.c_int * 4)()
             _raise_on(getattr(lib, fn)(which, ctypes.cast(buf, ctypes.c_void_p)), f"{fn}({which})")
-            out[f"{kernel} {draw}"] = dict(zip(("registers", "local_bytes", "blocks_per_sm", "shared_bytes"), buf))
+            out[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm", "shared_bytes"), buf))
     return out
 
 

@@ -18,6 +18,19 @@ Unified row table, float32, 16 lanes per row (64 bytes):
   node rows; for a leaf they are tri rows.
 The JAX table has 128 lanes a row, the TPU's DMA tile; lanes 16: are zero
 there, so this table is its first 16 lanes, row for row.
+
+Packed layout, read by the traversal kernel K5 and built from the table by
+`pack_bvh8` (the plain walker reads the table):
+  nodes (n_blocks, 64) int32, one 256-byte record a child block (the root's
+    and every inner node's), structure of arrays: lo x, lo y, lo z, hi x,
+    hi y, hi z of the up-to-8 children (8 lanes each, float32 bits copied
+    from the table), then the 8 children's meta words, then 8 lanes of 0;
+    lanes of children past the block's count are 0;
+  tris (n_prims, 12) float32, 48 bytes a triangle in leaf order: v0, e1,
+    e2 and the prim id (the table's tri row lanes 0:10; lanes 10:12 are 0).
+A meta word keeps the table's flags and points into these arrays: an inner
+child's base is its child block's record, a leaf's base its first
+triangle. Records are in the order of their blocks' first table rows.
 """
 
 from __future__ import annotations
@@ -52,13 +65,21 @@ class BVH8(NamedTuple):
     # [n0(0:3), n1(3:6), n2(6:9), uv0(9:11), uv1(11:13), uv2(13:15),
     #  material_id(15)]
     attr_rows: torch.Tensor
+    nodes: torch.Tensor  # (n_blocks, 64) int32 packed child-block records
+    tris: torch.Tensor  # (n_prims, 12) float32 packed triangles
+    packed_root: int  # meta word of the root block in the packed layout
 
     @property
     def device(self) -> torch.device:
         return self.table.device
 
+    @property
+    def packed_bytes(self) -> int:
+        return (self.nodes.numel() + self.tris.numel()) * 4
+
     def to(self, device) -> "BVH8":
-        return self._replace(table=self.table.to(device), attr_rows=self.attr_rows.to(device))
+        return self._replace(table=self.table.to(device), attr_rows=self.attr_rows.to(device),
+                             nodes=self.nodes.to(device), tris=self.tris.to(device))
 
 
 def pack_flags(count: int, axis: int, leaf: bool) -> int:
@@ -205,6 +226,7 @@ def build_bvh8(soup: TriangleSoup, max_leaf: int = MAX_LEAF8) -> BVH8:
         attr[:, col:col + 2] = np.asarray(getattr(soup, name))[perm]
     attr[:, 15] = np.asarray(soup.material_id)[perm]
 
+    nodes, tris, packed_root = pack_bvh8(table, root_meta, tri0, n_prims)
     return BVH8(
         table=torch.from_numpy(table),
         root_meta=root_meta,
@@ -212,4 +234,40 @@ def build_bvh8(soup: TriangleSoup, max_leaf: int = MAX_LEAF8) -> BVH8:
         tri0=tri0,
         max_depth=max_depth,
         attr_rows=torch.from_numpy(attr),
+        nodes=torch.from_numpy(nodes),
+        tris=torch.from_numpy(tris),
+        packed_root=packed_root,
     )
+
+
+def pack_bvh8(table: np.ndarray, root_meta: int, tri0: int, n_prims: int):
+    """The packed layout of the module docstring from a row table:
+    (nodes, tris, packed root meta)."""
+    base = table[:tri0, 12].astype(np.int64)
+    flags = table[:tri0, 13].astype(np.int64)
+    leaf = (flags & 1) > 0
+    root_base, root_flags = root_meta & ((1 << META_BASE_BITS) - 1), root_meta >> META_FLAGS_SHIFT
+    root_cnt = ((root_flags >> 3) & 7) + 1
+    # a block is (first table row, count): the root's and each inner row's
+    block_base = np.concatenate([[root_base], base[~leaf]])
+    block_cnt = np.concatenate([[root_cnt], ((flags[~leaf] >> 3) & 7) + 1])
+    order = np.argsort(block_base, kind="stable")
+    block_base, block_cnt = block_base[order], block_cnt[order]
+    if np.any(np.diff(block_base) <= 0):
+        raise ValueError("BVH8 child blocks must start at distinct rows")
+    record = np.searchsorted(block_base, base)
+    meta = (flags << META_FLAGS_SHIFT) | np.where(leaf, base - tri0, record)
+
+    k8 = np.arange(8)
+    valid = k8[None, :] < block_cnt[:, None]
+    rows = np.where(valid, block_base[:, None] + k8[None, :], 0)
+    bits = table[:tri0].view(np.int32)
+    nodes = np.zeros((len(block_base), 64), np.int32)
+    for lane in range(6):  # lo x, y, z, hi x, y, z
+        nodes[:, 8 * lane:8 * lane + 8] = np.where(valid, bits[rows, lane], 0)
+    nodes[:, 48:56] = np.where(valid, meta[rows], 0)
+
+    tris = np.zeros((n_prims, 12), np.float32)
+    tris[:, :10] = table[tri0:tri0 + n_prims, :10]
+    packed_root = (int(root_flags) << META_FLAGS_SHIFT) | int(np.searchsorted(block_base, root_base))
+    return nodes, tris, packed_root

@@ -22,22 +22,26 @@ of STACK8_DEPTH entries:
 
 What bounds K5 on the card: the least time is the larger of the slab and
 triangle operations over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s (the
-rays' 41 bytes in and 16 out each, the table once; the matpreview-size
-table is 4.8 MB and stays in the 50 MB L2). At the render's rays the two
-come out close, so either can bound a launch. `chip_smoke.py` works the
-bound out from this module's plain walker, which counts the node-block
-visits and triangle tests of the main path's rays (`traverse8_plain(...,
-stats=True)`). The kernel runs far above that bound: a ray's walk is a
-chain of dependent row loads and a warp runs as long as its longest ray.
-This first version is simple: one thread a ray, rows read with `__ldg` as
-float4, the stack in local memory. Both versions round every product and
-sum separately (no FMA contraction in the kernel), so they agree to the
-bit on every ray. No PyTorch call computes a BVH traversal, so K5 has no
-library yardstick.
+rays' 41 bytes in and 16 out each, the packed layout once; the
+matpreview-size scene's is ~4 MB and stays in the 50 MB L2). At the
+render's rays the two come out close, so either can bound a launch.
+`chip_smoke.py` works the bound out from this module's plain walker, which
+counts the node-block visits and triangle tests of the main path's rays
+(`traverse8_plain(..., stats=True)`). The kernel runs far above that bound:
+a ray's walk is a chain of dependent node visits and a warp runs as long
+as its longest ray. K5 reads the packed layout of `render/bvh8.py`: a
+node visit loads one 256-byte record of its 8 children's bounds and meta
+words, 14 independent 16-byte loads, and a triangle one 48-byte record;
+its stack is in local memory, and its warps are persistent, each taking
+32 rays at a time from a counter. Both
+versions round every product and sum separately (no FMA contraction in the
+kernel) and push children in the same order, so they agree to the bit on
+every ray. No PyTorch call computes a BVH traversal, so K5 has no library
+yardstick.
 
-The plain version walks the same table with per-ray stacks, in lockstep
-over the rays that are still live, with the same push order, tie rules and
-caps. A wrapper takes it for CPU tensors only; a CUDA tensor launches K5
+The plain version walks the row table (`BVH8.table`) with per-ray stacks,
+in lockstep over the rays that are still live, with the same push order,
+tie rules and caps. A wrapper takes it for CPU tensors only; a CUDA tensor launches K5
 or raises, and adds one to `launches["traverse8"]`.
 """
 
@@ -211,9 +215,24 @@ def traverse8_plain(bvh: BVH8, ro: torch.Tensor, rd: torch.Tensor, ird: torch.Te
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("traverse8.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.bsdf_traverse8.argtypes = [P, ctypes.c_uint, P, P, P, P, P, I, I, P, P, P, P, P, P]
+    lib.bsdf_traverse8.argtypes = [P, P, ctypes.c_uint, P, P, P, P, P, I, I, P, P, P, P, P, P, P]
     lib.bsdf_traverse8.restype = I
+    lib.bsdf_traverse8_kernel_info.argtypes = [I, P]
+    lib.bsdf_traverse8_kernel_info.restype = I
     return lib
+
+
+def kernel_resources() -> dict:
+    """{instantiation: {registers, local_bytes, blocks_per_sm, shared_bytes}}
+    of K5 (closest and any hit) at 128 threads a block, on the current card."""
+    out = {}
+    for which, name in enumerate(("K5 closest hit", "K5 any hit")):
+        buf = (ctypes.c_int * 4)()
+        rc = _lib().bsdf_traverse8_kernel_info(which, ctypes.cast(buf, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"bsdf_traverse8_kernel_info({which}): CUDA error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm", "shared_bytes"), buf))
+    return out
 
 
 def _check(t: torch.Tensor, name: str, shape: tuple, dtype, device) -> None:
@@ -237,19 +256,22 @@ def traverse8(bvh: BVH8, ro: torch.Tensor, rd: torch.Tensor, ird: torch.Tensor, 
         _check(x, name, (r, 3), torch.float32, dev)
     _check(t_max, "t_max", (r,), torch.float32, dev)
     _check(active, "active", (r,), torch.bool, dev)
-    _check(bvh.table, "table", (bvh.n_rows, 16), torch.float32, dev)
+    _check(bvh.nodes, "nodes", (bvh.nodes.shape[0], 64), torch.int32, dev)
+    _check(bvh.tris, "tris", (bvh.tris.shape[0], 12), torch.float32, dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     prim = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
     n_trunc = torch.zeros(1, dtype=torch.int32, device=dev)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)  # K5's persistent warps take rays from it
     if r == 0:
         return t, prim, u, v, n_trunc
     with torch.cuda.device(dev):
         rc = _lib().bsdf_traverse8(
-            bvh.table.data_ptr(), bvh.root_meta, ro.data_ptr(), rd.data_ptr(), ird.data_ptr(),
-            t_max.data_ptr(), active.data_ptr(), r, int(any_hit), t.data_ptr(), prim.data_ptr(),
-            u.data_ptr(), v.data_ptr(), n_trunc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            bvh.nodes.data_ptr(), bvh.tris.data_ptr(), bvh.packed_root, ro.data_ptr(), rd.data_ptr(),
+            ird.data_ptr(), t_max.data_ptr(), active.data_ptr(), r, int(any_hit), t.data_ptr(), prim.data_ptr(),
+            u.data_ptr(), v.data_ptr(), n_trunc.data_ptr(), next_ray.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"traverse8: CUDA error {rc} at launch")
     launches["traverse8"] += 1

@@ -11,28 +11,32 @@ Phases, each of which raises on failure:
   1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`,
      one nvcc per source, all started together; print each kernel's ptxas
      lines and its tensor-core instructions (HMMA, HGMMA) counted in the
-     library's SASS by `cuobjdump`; K1 and K4 must have the three passes
-     of 3xTF32 (a whole number of hidden layers of them) and spill nothing;
+     library's SASS by `cuobjdump`; every K1, K4 and K3 instantiation must
+     have the three passes of 3xTF32 (a whole number of hidden layers of
+     them: 144, 48 or 192 HMMA) and spill nothing;
   2. print the card's name and power limit, and the registers, local bytes
-     and blocks an SM of each K1 and K4 instantiation; turn TF32 off
-     (the plain versions run in full fp32);
+     and blocks an SM of each K1, K4, K3 and K5 instantiation; turn TF32
+     off (the plain versions run in full fp32);
   3. make full-width weights from a numpy seed (disk 3 x 32; spherical
      4 x 32 and its 6 x 64 teacher), write them with the port's `.npz`
      writer, read them back, and build the neural BSDFs;
   4. hold K1, K2 and K4 against their plain PyTorch versions on the card, at
      2^20 rows and at 2^20 - 37 (a partly masked block), K4 from explicit
-     eps and from its in-kernel draw; K1 and K4 again, to the same
+     eps and from its in-kernel draw; hold K3 against its plain version
+     in every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
+     reverse, with and without the det, at 2^20 and 2^20 - 37; spherical
+     6 x 64 primal at T = 128 and disk primal at T = 256, at 2^16 and
+     2^16 - 37; K1, K4 and K3 (the render's spherical 4 x 32 reverse with
+     the det, and the 6 x 64 teacher at T = 128) again, to the same
      tolerances, on weights that move x by O(1), where single-pass TF32
-     products would show; hold K3 against its plain
-     version in every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
-     reverse, with and without the det, at 2^20; spherical 6 x 64 primal
-     at T = 128 and disk primal at T = 256, at 2^16;
+     products would show;
   5. write the procedural matpreview-size scene (61,648 triangles,
      `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF), and its
      table-material twin (scene_bsdf-style hook, idx 20, albedo (0.4, 0.8,
      0.4)), and load them;
   6. hold K5 against its plain walker on primary, secondary and shadow
-     rays (closest and any hit) at 2^20 and 2^20 - 37 rays;
+     rays (closest and any hit) at 2^20 and 2^20 - 37 rays; print its
+     packed layout's bytes;
   7. the sampler paths: bounces of neural_sample -> neural_pdf at 2^20
      queries, disk and spherical (exact pdf, then K3's reverse-Euler pdf),
      with the kernels' launch counts read around each;
@@ -43,7 +47,9 @@ Phases, each of which raises on failure:
      (K3) through `render()`; the launch counts read around each render,
      and checks of the images;
   9. time each kernel, its plain version and its bound; the plain exact
-     spherical pdf; one bounce's stages, neural-disk and neural-sphere;
+     spherical pdf; one bounce's stages,
+     neural-disk, neural-sphere, and neural-sphere with K3's reverse-Euler
+     pdf;
   10. print the `kernels` line and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
@@ -146,14 +152,19 @@ PEAKS = {  # name fragment: (fp32 FLOP/s, bytes/s)
     "H100": (67e12, 3.35e12),  # SXM
 }
 TF32_PEAKS = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
-# The kernels whose MLP runs on the tensor cores (K1, K4), by library: the
-# marker of their kernels' names, and the precision of their products.
-TC_KERNELS = {"fused_ode.cu": "sample_pdf_disk_kernel", "fused_sph.cu": "sample_pdf_sph_kernel"}
-PRECISION = {"fused_sample_pdf_disk": "3xtf32", "fused_sample_pdf_spherical": "3xtf32"}
+# The kernels whose MLP runs on the tensor cores (K1, K4, K3), by library:
+# the marker of their kernels' names and how many instantiations each
+# library has; and the precision of their products.
+TC_KERNELS = {"fused_ode.cu": ("sample_pdf_disk_kernel", 2), "fused_sph.cu": ("sample_pdf_sph_kernel", 2),
+              "fused_transport.cu": ("transport_kernel", 5)}
+PRECISION = {"fused_sample_pdf_disk": "3xtf32", "fused_sample_pdf_spherical": "3xtf32",
+             "fused_transport": "3xtf32"}
 # The mma.sync of one hidden 32 x 32 layer of K1 and K4: 3 passes (lo*hi,
 # hi*lo, hi*hi) x 3 streams (primal, two tangents) x 4 n8 tiles x 4 k8
 # chunks. The layer loop is not unrolled, so each kernel's SASS holds a
-# whole multiple of it; a dropped pass leaves 96 or 48.
+# whole multiple of it; a dropped pass leaves 96 or 48. K3's (`hmma_a_layer`):
+# 3 passes x S streams (3 with the det, 1 without) x (H / 8)^2 tiles: 144,
+# 48, and 192 for its 64-wide primal net.
 HMMA_A_LAYER = 3 * 3 * (32 // 8) ** 2
 # Velocity weights that move x by O(1) (uniform, variance 1.5^2 / fan-in;
 # tests/test_torch_tc_precision.py). The chip's other weights move x by
@@ -161,6 +172,8 @@ HMMA_A_LAYER = 3 * 3 * (32 // 8) ** 2
 # they would miss them by ~100x (the CPU emulation), so K1 and K4 are held
 # to their gates on these too.
 STRONG_SCALE = 1.5 * math.sqrt(3.0)
+K3_MAIN = "spherical 4x32 reverse det T=8"  # K3's instantiation on the render path
+K3_TEACHER = "spherical 6x64 forward primal T=128"  # rectify's teacher pairs
 
 
 def tf32_peak(name: str) -> float:
@@ -197,7 +210,7 @@ def init_weights(seed: int, cfg: ModelConfig, teacher: ModelConfig | None = None
     b_dims = [2 * (2 * cfg.base_pe_bands + 1), cfg.base_hidden, 4]
     tree = {"base": {"net": layers(b_dims, True)}, "rectified": layers(v_dims(cfg), False, v_scale)}
     if teacher is not None:
-        tree["teacher"] = layers(v_dims(teacher), False, 0.5)
+        tree["teacher"] = layers(v_dims(teacher), False, v_scale)
     return tree
 
 
@@ -344,10 +357,14 @@ def check_spherical(nb, device, n: int) -> dict:
 
 
 def check_strong(device) -> dict:
-    """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN, on
-    velocity weights that move x by O(1), to the gates of check_kernels and
-    check_spherical. Products rounded to single-pass TF32 would miss them
-    (~1e-3 in x on the CPU emulation)."""
+    """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN, and
+    K3 in the render's instantiation and as the 6 x 64 teacher, on velocity
+    weights that move x by O(1), to the gates of check_kernels,
+    check_spherical and check_transport. Products rounded to single-pass
+    TF32 would miss them (~1e-3 in x on the CPU emulation). The teacher
+    takes 16x the render's steps and keeps the spherical gate:
+    tests/test_torch_tc_precision.py's emulation of its 3xTF32 products
+    lands 1.4e-6 from fp32 at T = 128 (two fp32 orders differ by 1.1e-6)."""
     sc = SamplerConfig()
     rng = np.random.default_rng(SEED + 16)
     wi = hemisphere(torch.from_numpy(rng.random((N_MAIN, 2), dtype=np.float32)).to(device))
@@ -374,6 +391,29 @@ def check_strong(device) -> dict:
         require(max(r["x_abs"], r["x0_abs"]) <= tol_x, f"{label} x/x0 differs from plain on O(1)-moving weights")
         require(r["pdf_rel"] <= tol_pdf, f"{label} pdf differs from plain on O(1)-moving weights")
         out[k] = {"max_abs_err": max(r["x_abs"], r["x0_abs"]), "max_rel_err": r["pdf_rel"]}
+
+    # K3: the render's reverse-Euler pdf transport from the forward end
+    # points, and the teacher forward from base-like points
+    tree = init_weights(SEED + 201, SPH_CFG, TEACHER_CFG, v_scale=STRONG_SCALE)
+    net, teacher = (fo.prepack_velocity(params_from_jax(tree[k], device)) for k in ("rectified", "teacher"))
+    cond = encode_condition(cart_to_spher(wi), SPH_CFG)
+    x0 = torch.from_numpy(np.stack([rng.uniform(0.1, 1.5, N_MAIN), phi], -1).astype(np.float32)).to(device)
+    x_end = fo.transport_plain("spherical", net, x0, cond, sc.T_spherical, with_jac=False)[0].contiguous()
+    out["fused_transport"] = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for label, w, x, c, T, reverse, jac in ((K3_MAIN, net, x_end, cond, sc.T_spherical, True, True),
+                                            (K3_TEACHER, teacher, x0[:N_LONG], cond[:N_LONG], 128, False, False)):
+        xk, dk = fo.fused_transport_packed(w, "spherical", x, c, T, reverse=reverse, with_jac=jac)
+        xp, dp = fo.transport_plain("spherical", w, x, c, T, reverse=reverse, with_jac=jac)
+        r = {"n": x.shape[0], "x_moved_max": max_abs(xp, x), "x_abs": max_abs(xk, xp),
+             "det_rel": max_rel(dk, dp) if jac else 0.0, "det_sign_flips": int((dp <= 0).sum()) if jac else None}
+        log(f"  K3 {label} on O(1)-moving weights vs plain: {r}")
+        require(bool(torch.isfinite(xk).all() and torch.isfinite(dk).all()),
+                f"K3 {label}: non-finite output on O(1)-moving weights")
+        require(r["x_moved_max"] >= 1.0, f"K3 {label}: the O(1)-moving weights moved x by {r['x_moved_max']} only")
+        require(r["x_abs"] <= TOL_SPH_X_ABS, f"K3 {label}: x differs from plain on O(1)-moving weights")
+        require(r["det_rel"] <= TOL_SPH_PDF_REL, f"K3 {label}: det differs from plain on O(1)-moving weights")
+        e = out["fused_transport"]
+        e["max_abs_err"], e["max_rel_err"] = max(e["max_abs_err"], r["x_abs"]), max(e["max_rel_err"], r["det_rel"])
     return out
 
 
@@ -395,7 +435,7 @@ def k3_cases(nb_disk, nb_sph, teacher, device) -> list:
                 label = f"{dom} {nb.packed.layers}x{nb.packed.hidden} {'reverse' if reverse else 'forward'} " \
                         f"{'det' if jac else 'primal'} T={nb.T}"
                 cases.append((label, nb.packed, dom, (x if reverse else x0).contiguous(), cond, nb.T, reverse, jac))
-    cases.append(("spherical 6x64 forward primal T=128", teacher, "spherical", x0s[:N_LONG].contiguous(),
+    cases.append((K3_TEACHER, teacher, "spherical", x0s[:N_LONG].contiguous(),
                   cond_s[:N_LONG], 128, False, False))
     cases.append(("disk 3x32 forward primal T=256", nb_disk.packed, "disk", x0d[:N_LONG].contiguous(),
                   cond_d[:N_LONG], 256, False, False))
@@ -403,20 +443,22 @@ def k3_cases(nb_disk, nb_sph, teacher, device) -> list:
 
 
 def check_transport(cases) -> dict:
-    """Phase 4, K3 against its plain version in every instantiation."""
+    """Phase 4, K3 against its plain version in every instantiation, on all
+    of each case's rows and on all but the last 37 (a partly masked warp)."""
     out = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for label, w, dom, x, cond, T, reverse, jac in cases:
-        xk, dk = fo.fused_transport_packed(w, dom, x, cond, T, reverse=reverse, with_jac=jac)
-        xp, dp = fo.transport_plain(dom, w, x, cond, T, reverse=reverse, with_jac=jac)
-        r = {"n": x.shape[0], "x_abs": max_abs(xk, xp), "det_rel": max_rel(dk, dp) if jac else 0.0,
-             "det_zero": bool((dk == 0).all()) if not jac else None}
-        log(f"  K3 {label:38s} vs plain: {r}")
-        require(bool(torch.isfinite(xk).all() and torch.isfinite(dk).all()), f"K3 {label}: non-finite output")
-        require(r["x_abs"] <= TOL_SPH_X_ABS, f"K3 {label}: x differs from plain")
-        require(r["det_rel"] <= TOL_SPH_PDF_REL, f"K3 {label}: det differs from plain")
-        require(jac or r["det_zero"], f"K3 {label}: det not 0 without the det")
-        out["max_abs_err"] = max(out["max_abs_err"], r["x_abs"])
-        out["max_rel_err"] = max(out["max_rel_err"], r["det_rel"])
+        for n in (x.shape[0], x.shape[0] - 37):
+            xk, dk = fo.fused_transport_packed(w, dom, x[:n], cond[:n], T, reverse=reverse, with_jac=jac)
+            xp, dp = fo.transport_plain(dom, w, x[:n], cond[:n], T, reverse=reverse, with_jac=jac)
+            r = {"n": n, "x_abs": max_abs(xk, xp), "det_rel": max_rel(dk, dp) if jac else 0.0,
+                 "det_zero": bool((dk == 0).all()) if not jac else None}
+            log(f"  K3 {label:38s} vs plain: {r}")
+            require(bool(torch.isfinite(xk).all() and torch.isfinite(dk).all()), f"K3 {label}: non-finite output")
+            require(r["x_abs"] <= TOL_SPH_X_ABS, f"K3 {label}: x differs from plain")
+            require(r["det_rel"] <= TOL_SPH_PDF_REL, f"K3 {label}: det differs from plain")
+            require(jac or r["det_zero"], f"K3 {label}: det not 0 without the det")
+            out["max_abs_err"] = max(out["max_abs_err"], r["x_abs"])
+            out["max_rel_err"] = max(out["max_rel_err"], r["det_rel"])
     return out
 
 
@@ -629,8 +671,6 @@ def timed(label: str, kern, plain, macs: int, nbytes: int, n: int, name: str, pl
     return r
 
 
-K3_MAIN = "spherical 4x32 reverse det T=8"  # the instantiation the render path runs
-
 
 def times_spherical(nb, cases, device, name: str) -> dict:
     """Phase 9: K4 and every K3 instantiation, their plain versions and
@@ -687,7 +727,7 @@ def time_traverse(accel, cam, device, name: str) -> dict:
         plain_ms = cuda_ms(lambda: t8.traverse8_plain(accel, *args), runs=3, warmup=1)
         st = t8.traverse8_plain(accel, *args, stats=True)[5]
         ops = K5_BOX_OPS * st.box_tests + K5_TRI_OPS * st.tri_tests
-        nbytes = N_MAIN * K5_RAY_BYTES + accel.table.numel() * 4
+        nbytes = N_MAIN * K5_RAY_BYTES + accel.packed_bytes
         out[set_name] = {"ms": ms, "plain_ms": plain_ms, "t_ops_ms": ops / flops_peak * 1e3,
                          "t_bytes_ms": nbytes / bytes_peak * 1e3, "active": int(act.sum()),
                          "mray_per_s": N_MAIN / ms / 1e3, **st._asdict(), "ops": ops, "bytes": nbytes}
@@ -899,11 +939,21 @@ def ptxas_spills(log_text: str) -> dict:
     return out
 
 
+def hmma_a_layer(fn: str) -> int:
+    """One hidden layer's mma.sync of the kernel with mangled name `fn`:
+    K3's `transport_kernel<H, NL, XE, JAC, NW>` takes 3 x S x (H / 8)^2 (S = 3
+    with the det, 1 without); K1 and K4 take HMMA_A_LAYER."""
+    m = re.search(r"transport_kernelILi(\d+)ELi\d+ELi\d+ELb([01])E", fn)
+    if m is None:
+        return HMMA_A_LAYER
+    return 3 * (3 if m.group(2) == "1" else 1) * (int(m.group(1)) // 8) ** 2
+
+
 def tensor_core_evidence(libs: dict) -> None:
     """Phase 1: the tensor-core instructions (HMMA, HGMMA) of each CUDA
-    library's kernels, counted in its SASS; each K1 and K4 instantiation
-    must hold a nonzero whole multiple of HMMA_A_LAYER, and ptxas must
-    report no spill stores for them."""
+    library's kernels, counted in its SASS; each K1, K4 and K3
+    instantiation must hold a nonzero whole multiple of its hidden layer's
+    count (`hmma_a_layer`), and ptxas must report no spill stores for them."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     for src, path in sorted(libs.items()):
         if not src.endswith(".cu"):
@@ -912,15 +962,16 @@ def tensor_core_evidence(libs: dict) -> None:
                                               check=True).stdout)
         for fn, c in counts.items():
             log(f"    sass {src}: {fn}: {c}")
-        marker = TC_KERNELS.get(src)
-        if marker is None:
+        if src not in TC_KERNELS:
             continue
+        marker, count = TC_KERNELS[src]
         tc = {fn: c for fn, c in counts.items() if marker in fn}
         spills = {fn: v for fn, v in ptxas_spills(path.with_suffix(".log").read_text()).items() if marker in fn}
-        require(len(tc) == 2 and all(c["HMMA"] > 0 and c["HMMA"] % HMMA_A_LAYER == 0 for c in tc.values()),
-                f"{src}: a {marker} instantiation lacks the 3xTF32 products of whole hidden layers "
-                f"({HMMA_A_LAYER} HMMA each): {tc}")
-        require(len(spills) == 2 and all(v[1] == 0 for v in spills.values()),
+        require(len(tc) == count and all(c["HMMA"] > 0 and c["HMMA"] % hmma_a_layer(fn) == 0
+                                         for fn, c in tc.items()),
+                f"{src}: a {marker} instantiation lacks the 3xTF32 products of whole hidden layers: "
+                f"{ {fn: (c['HMMA'], hmma_a_layer(fn)) for fn, c in tc.items()} }")
+        require(len(spills) == count and all(v[1] == 0 for v in spills.values()),
                 f"{src}: ptxas reports spill stores for {marker}: {spills}")
 
 
@@ -946,8 +997,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[2] {smi}")
-    for inst, r in fo.kernel_resources().items():
-        log(f"    resources {inst}: {r} (128 threads a block)")
+    for inst, r in {**fo.kernel_resources(), **t8.kernel_resources()}.items():
+        log(f"    resources {inst}: {r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("    TF32 off for matmul and cuDNN: the plain versions run in full fp32")
@@ -989,10 +1040,10 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         found["fused_sample_pdf_spherical"] = check_spherical(nb_sph["exact"], device, n)
         for k, e in found.items():
             errs[k] = {m: max(v, errs.get(k, {}).get(m, 0.0)) for m, v in e.items()}
-    for k, e in check_strong(device).items():
-        errs[k] = {m: max(v, errs[k][m]) for m, v in e.items()}
     cases = k3_cases(nb, nb_sph["exact"], teacher, device)
     errs["fused_transport"] = check_transport(cases)
+    for k, e in check_strong(device).items():
+        errs[k] = {m: max(v, errs[k][m]) for m, v in e.items()}
     log(f"[4] K1, K2, K4 vs plain at n = {N_MAIN} and {N_RAGGED}, K3 in {len(cases)} instantiations: ok {errs} "
         f"({time.time() - t0:.1f} s)")
 
@@ -1001,9 +1052,12 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
               "table": write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=TABLE_SPP, max_depth=RENDER_DEPTH,
                                    table=TABLE)}
     scene = load_scene(scenes["measured"], device=device)
-    log(f"[5] scene: {scene.accel.attr_rows.shape[0]} triangles, {scene.accel.n_rows} table rows "
-        f"({scene.accel.table.numel() * 4 / 1e6:.2f} MB), 8-wide depth {scene.accel.max_depth}, "
-        f"envmap {tuple(scene.envmap.data.shape)}; table twin {scenes['table']} ({time.time() - t0:.1f} s)")
+    acc = scene.accel
+    log(f"[5] scene: {acc.attr_rows.shape[0]} triangles, {acc.n_rows} table rows "
+        f"({acc.table.numel() * 4 / 1e6:.2f} MB), 8-wide depth {acc.max_depth}; K5's packed layout "
+        f"{acc.packed_bytes} bytes ({acc.nodes.shape[0]} node records of 256 bytes, {acc.tris.shape[0]} "
+        f"triangles of 48); envmap {tuple(scene.envmap.data.shape)}; table twin {scenes['table']} "
+        f"({time.time() - t0:.1f} s)")
     t0 = time.time()
     k5 = [r for n in (N_MAIN, N_RAGGED) for r in check_traverse(scene.accel, scene.camera, device, n).values()]
     log(f"[6] K5 vs plain walker at n = {N_MAIN} and {N_RAGGED}: ok ({time.time() - t0:.1f} s)")
@@ -1027,11 +1081,19 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     tm.update(times_spherical(nb_sph["exact"], cases, device, name))
     tm["traverse8"] = time_traverse(scene.accel, scene.camera, device, name)
     table = {"filename": "", "idx": TABLE[0], "albedo": TABLE[1]}
+    scene_t = load_scene(scenes["table"], device=device)
     for mode, ball, sc in (("neural-disk", {"filename": "synthetic_rgb", "idx": -1}, scene),
-                           ("neural-sphere", table, load_scene(scenes["table"], device=device))):
+                           ("neural-sphere", table, scene_t)):
         mb = render_cli.build_matball(ball, argparse.Namespace(bsdf_dir=d, mode=mode, checkpoint=weights[mode]),
                                       device)
         bounce_breakdown(mode, sc, mb, device)
+    # the neural-sphere bounce with K3's reverse-Euler pdf, whose two pdf
+    # stages each launch K3 once
+    mb = neural_matball_sphere(nb_sph["reverse"], BSDF_MATERIALS[TABLE[0]], TABLE[1])
+    _, k3_counts = counted(lambda: bounce_breakdown("neural-sphere K3", scene_t, mb, device))
+    require(k3_counts["fused_transport"] == 2 * (RUNS + 3),
+            f"neural-sphere K3 bounce breakdown: K3 launched {k3_counts['fused_transport']} times in {RUNS + 3} "
+            "bounces, expected 2 a bounce")
     log(f"[9] times: ({time.time() - t0:.1f} s)")
 
     # launches: each kernel from the run of the path that runs it, counts

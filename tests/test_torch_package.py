@@ -129,7 +129,18 @@ def test_kernel_library_is_keyed_by_source_and_not_built_at_import():
     assert p.parent == PORT_DIR / "_build" and p.name.startswith("fused_ode-")
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
-    assert not cuda_build._libs  # importing the port loaded no library
+    # importing every module of the port loads no library; asked of a fresh
+    # process, since tests run before this one in the same worker may have
+    # built the BVH builder
+    code = ("import importlib, pkgutil, bsdf_diffusion_sampling_tpu_torch as p\n"
+            "from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "print(sorted(cuda_build._libs))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
     assert cuda_build.library_path("traverse8.cu").name.startswith("traverse8-")
     for src in ("fused_sph.cu", "fused_transport.cu"):  # K4, K3
         assert cuda_build.library_path(src).name.startswith(src.split(".")[0] + "-")
@@ -151,11 +162,16 @@ def test_cuda_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     assert cuda_build._flags("bvh_build.cpp") == cuda_build.HOST_FLAGS
 
 
-def test_build_log_and_sass_parsers():
-    """The parsers behind chip_smoke.py's spill and tensor-core checks."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_build_log_and_sass_parsers():
+    """The parsers behind chip_smoke.py's spill and tensor-core checks."""
+    smoke = _chip_smoke()
     log = """ptxas info    : Compiling entry function '_Z2k1v' for 'sm_90a'
 ptxas info    : Function properties for _Z2k1v
     32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -177,3 +193,19 @@ ptxas info    : Used 128 registers, used 1 barriers, 72 bytes cumulative stack s
     assert smoke.count_opcodes(sass) == {"_Z2k1v": {"HMMA": 2, "HGMMA": 0}, "_Z2k2v": {"HMMA": 0, "HGMMA": 1}}
     # a K1/K4 instantiation's count: whole hidden layers of 3 passes x 3 streams x 4 x 4 tiles
     assert smoke.HMMA_A_LAYER == 144
+
+
+_K3 = "_ZN51_GLOBAL__N__91546b8d_18_fused_transport_cu_def1201916transport_kernelI{}EEEvPKfS2_S2_PfS3_iii"
+
+
+@pytest.mark.parametrize("fn, want", [
+    (_K3.format("Li32ELi4ELi3ELb1ELi4"), 144),  # spherical 4 x 32 with the det: 3 passes x 3 streams x 4 x 4
+    (_K3.format("Li32ELi3ELi2ELb0ELi4"), 48),  # disk 3 x 32 primal: 3 passes x 1 stream x 4 x 4
+    (_K3.format("Li64ELi6ELi3ELb0ELi8"), 192),  # spherical 6 x 64 primal: 3 passes x 1 stream x 8 x 8
+    ("_ZN45_GLOBAL__N__1f34553d_12_fused_ode_cu_adcbb23b22sample_pdf_disk_kernelILi32ELi3ELb1EEEvPKfS2_PKxS2_PfS5_S5_"
+     "ii", 144),  # K1
+])
+def test_hmma_count_of_one_hidden_layer(fn, want):
+    """What chip_smoke.py requires each K1, K4 and K3 instantiation's HMMA
+    count to be a whole multiple of, read from its mangled name."""
+    assert _chip_smoke().hmma_a_layer(fn) == want

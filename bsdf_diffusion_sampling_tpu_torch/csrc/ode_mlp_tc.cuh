@@ -1,16 +1,17 @@
-// Tensor-core velocity MLP and Euler transport for the sample+pdf kernels
-// (fused_ode.cu: K1; fused_sph.cu: K4) and the generic transport
-// (fused_transport.cu: K3). K2 keeps ode_mlp.cuh's one-thread-a-sample MLP.
+// Tensor-core velocity MLP and Euler transport of every fused ODE kernel:
+// the sample+pdf kernels (fused_ode.cu: K1; fused_sph.cu: K4), the disk pdf
+// query (fused_ode.cu: K2, whose Newton inverse calls `velocity_tile`
+// itself) and the generic transport (fused_transport.cu: K3).
 //
 // Tile. A warp runs 32 samples: one lane a sample for the per-sample scalar
 // work (base heads, draw, log p0, det, stores), then two tiles of 16 samples
 // for the transport. In a tile each sample is S rows: with the det (S = 3)
 // its primal activations and its two forward-mode tangent streams, held at
 // the same fragment position of three m16 x H tiles (P, G0, G1); without it
-// (S = 1, K3's primal transports) the primal tile alone, with no silu'
-// products and no det. Row r of each tile is sample r of the tile. Lane
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 8 nn + 2 t
-// and 8 nn + 2 t + 1 of each n8 tile nn: the
+// (S = 1: K3's primal transports, K2's warm starts) the primal tile
+// alone, with no silu' products and no det. Row r of each tile is sample r
+// of the tile. Lane (g = lane / 4, t = lane % 4) holds rows g and g + 8,
+// columns 8 nn + 2 t and 8 nn + 2 t + 1 of each n8 tile nn: the
 // accumulator layout of mma.m16n8k8 (c0, c1 row g; c2, c3 row g + 8). So
 // silu(z) and silu'(z) * t of one unit are register-local, and the state
 // (x, and the 2 x 2 tangent matrix m) of rows g and g + 8 is kept by the
@@ -36,10 +37,9 @@
 // kernels' gates.
 //
 // Steps: forward (alpha = t/T, x += v/T) or reverse (alpha = 1 - t/T,
-// x -= v/T, the tangents likewise), a runtime flag, as ode_mlp.cuh's
-// `transport`. Width H = 8 NT: 32 (NT = 4) or 64 (NT = 8). A hidden layer
-// is 3 x S x NT^2 mma.sync: 144 at width 32 with the det, 48 without it,
-// 192 at width 64 without it.
+// x -= v/T, the tangents likewise), a runtime flag. Width H = 8 NT: 32
+// (NT = 4) or 64 (NT = 8). A hidden layer is 3 x S x NT^2 mma.sync: 144 at
+// width 32 with the det, 48 without it, 192 at width 64 without it.
 //
 // Thin layers stay on the CUDA cores, written straight into the
 // accumulator layout: layer 0's x columns and alpha (K = XE + 1) plus the
@@ -48,8 +48,9 @@
 // lane reduced across the quad with two __shfl_xor_sync. The sigmoid of
 // the MLP's units is __expf and a correctly rounded reciprocal (__frcp_rn),
 // fewer instructions than expf and an IEEE divide; chip_smoke.py holds
-// K1 and K4 to their gates with it, also on weights that move x by O(1). The base heads keep ode_mlp.cuh's accurate
-// sigmoid: K4's draw is held against its host reproduction.
+// K1, K2, K4 and K3 to their gates with it, also on weights that move x by
+// O(1). The base heads keep ode_mlp.cuh's accurate sigmoid: K4's draw is
+// held against its host reproduction.
 
 #pragma once
 
@@ -281,23 +282,39 @@ __device__ __forceinline__ void output_tc(uint32_t wo, const float (&a)[S][NT][4
       }
 }
 
-// T Euler steps of rows g and g + 8 of one tile, as ode_mlp.cuh's
-// `transport` does for one sample: forward (alpha = t/T, x += v/T) or,
-// with `reverse`, alpha = 1 - t/T and x -= v/T. With S = 3 the two tangent
-// streams ride along (stepped by the same +-1/T) and one 2x2 det is taken
-// at the end; with S = 1 det is 0. `sa`: shared address of the block's
-// weights; `ca`: of the warp's cp tile. All 32 lanes must call it together.
+// One velocity evaluation of rows g and g + 8 of one tile: layer 0, the
+// hidden layers on the tensor cores, the output layer. o[0][r] is the
+// velocity of row r; with S = 3, o[1 + k][r] = J_enc mi[r][k], the
+// tangent streams (mi is not read at S = 1). Each lane of a quad ends with
+// its rows' sums. `sa`: shared address of the block's weights; `ca`: of
+// the warp's cp tile. All 32 lanes must call it together.
+template <int H, int NL, int XE, int S, bool HEADS = true, int NW = WARPS>
+__device__ __forceinline__ void velocity_tile(uint32_t sa, uint32_t ca, const float (&xe)[2][XE],
+                                              const float (&mi)[2][2][XE], float alpha, float (&o)[S][2][2],
+                                              int lane) {
+  using C = TcNet<H, NL, XE, HEADS, NW>;
+  constexpr int NT = C::NT;
+  const uint32_t w = fresh(sa), cpa = fresh(ca);
+  float a[S][NT][4];
+  layer0_tile<H, XE, S>(w, cpa, xe, mi, alpha, a, lane);
+#pragma unroll 1
+  for (int l = 0; l < NL - 1; ++l) hidden_tc<NT, S>(w + 4 * (C::FRAG + l * C::FRAG_LAYER) + 16 * lane, a);
+  output_tc<NT, S>(w + 4 * C::WOUT, a, o, lane);
+}
+
+// T Euler steps of rows g and g + 8 of one tile: forward (alpha = t/T,
+// x += v/T) or, with `reverse`, alpha = 1 - t/T and x -= v/T. With S = 3
+// the two tangent streams ride along (stepped by the same +-1/T) and one
+// 2x2 det is taken at the end: det(prod_t (I + sg J_t)) = prod_t det(I +
+// sg J_t), since det is multiplicative. With S = 1 det is 0.
 template <int H, int NL, int XE, int S = 3, bool HEADS = true, int NW = WARPS>
 __device__ __forceinline__ void transport_tile(uint32_t sa, uint32_t ca, float (&s0)[2], float (&s1)[2], int T,
                                                bool reverse, float (&det)[2], int lane) {
-  using C = TcNet<H, NL, XE, HEADS, NW>;
-  constexpr int NT = C::NT;
   const float h = 1.0f / (float)T;
   const float sg = reverse ? -h : h;
   float m[2][2][2] = {{{1.0f, 0.0f}, {0.0f, 1.0f}}, {{1.0f, 0.0f}, {0.0f, 1.0f}}};
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    const uint32_t w = fresh(sa), cpa = fresh(ca);
     const float alpha = reverse ? 1.0f - (float)t * h : (float)t * h;
     float xe[2][XE], mi[2][2][XE];
 #pragma unroll
@@ -305,12 +322,8 @@ __device__ __forceinline__ void transport_tile(uint32_t sa, uint32_t ca, float (
       encode<XE>(s0[r], s1[r], xe[r]);
       if constexpr (S == 3) encode_tangent<XE>(xe[r], m[r], mi[r]);
     }
-    float a[S][NT][4];
-    layer0_tile<H, XE, S>(w, cpa, xe, mi, alpha, a, lane);
-#pragma unroll 1
-    for (int l = 0; l < NL - 1; ++l) hidden_tc<NT, S>(w + 4 * (C::FRAG + l * C::FRAG_LAYER) + 16 * lane, a);
     float o[S][2][2];
-    output_tc<NT, S>(w + 4 * C::WOUT, a, o, lane);
+    velocity_tile<H, NL, XE, S, HEADS, NW>(sa, ca, xe, mi, alpha, o, lane);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if constexpr (S == 3) {
@@ -328,13 +341,16 @@ __device__ __forceinline__ void transport_tile(uint32_t sa, uint32_t ca, float (
   for (int r = 0; r < 2; ++r) det[r] = S == 3 ? m[r][0][0] * m[r][1][1] - m[r][1][0] * m[r][0][1] : 0.0f;
 }
 
-// The transport of a warp's 32 samples, whose first is `w0`: x0 in and
-// (x, det) out through the warp's state tile `st` (sample j at st[j ST]),
-// one tile of 16 at a time; a tile wholly at or past n is skipped. The
-// caller has written x0 and synced the warp.
-template <int H, int NL, int XE, int S = 3, bool HEADS = true, int NW = WARPS>
-__device__ __forceinline__ void transport_warp(float* smem, const float* __restrict__ cond, int w0, int n, int T,
-                                               int warp, int lane, bool reverse = false) {
+// A warp's 32 samples, whose first is `w0`, one tile of 16 at a time; a
+// tile wholly at or past n is skipped. For each tile `body(sa, ca, s0, s1,
+// det)` maps the state (s0, s1) of the lane's rows g and g + 8, read from
+// the warp's state tile `st` (sample j at st[j ST]), to (s0, s1, det),
+// written back. `sa`: shared address of the block's weights; `ca`: of the
+// warp's cp tile, which holds the tile's condition part. The caller has
+// written the state and synced the warp.
+template <int H, int NL, int XE, bool HEADS, int NW, typename Body>
+__device__ __forceinline__ void for_each_tile(float* smem, const float* __restrict__ cond, int w0, int n, int warp,
+                                              int lane, Body&& body) {
   using C = TcNet<H, NL, XE, HEADS, NW>;
   float* cpw = smem + C::CP + warp * C::CP_WARP;
   float* st = smem + C::STATE + warp * 32 * ST;
@@ -352,7 +368,7 @@ __device__ __forceinline__ void transport_warp(float* smem, const float* __restr
       s1[r] = st[j * ST + 1];
     }
     __syncwarp();
-    transport_tile<H, NL, XE, S, HEADS, NW>(sa, ca, s0, s1, T, reverse, det, lane);
+    body(sa, ca, s0, s1, det);
     __syncwarp();
     if ((lane & 3) == 0) {
 #pragma unroll
@@ -365,6 +381,18 @@ __device__ __forceinline__ void transport_warp(float* smem, const float* __restr
     }
   }
   __syncwarp();
+}
+
+// The transport of a warp's 32 samples: x0 in and (x, det) out through the
+// warp's state tile, as `for_each_tile` says.
+template <int H, int NL, int XE, int S = 3, bool HEADS = true, int NW = WARPS>
+__device__ __forceinline__ void transport_warp(float* smem, const float* __restrict__ cond, int w0, int n, int T,
+                                               int warp, int lane, bool reverse = false) {
+  for_each_tile<H, NL, XE, HEADS, NW>(
+      smem, cond, w0, n, warp, lane,
+      [&](uint32_t sa, uint32_t ca, float (&s0)[2], float (&s1)[2], float (&det)[2]) {
+        transport_tile<H, NL, XE, S, HEADS, NW>(sa, ca, s0, s1, T, reverse, det, lane);
+      });
 }
 
 // Registers, local bytes and blocks an SM of one kernel at `threads` a block

@@ -19,22 +19,20 @@
 
 The kernels are CUDA C++ (`csrc/fused_ode.cu`, `fused_sph.cu`,
 `fused_transport.cu`), built for `sm_90a` at first use and called through
-`ctypes`. What bounds them on the card: operations. Per sample K1 does
-~27k multiply-adds against ~110 bytes of I/O, K2 exact ~89k, K4 ~78k, so
-arithmetic is the limit, not device memory. K1, K4 and K3 run the
+`ctypes`. What bounds them on the card: operations. Per sample K1 and the
+reverse K2 do ~27k multiply-adds against ~110 bytes of I/O, the exact K2
+~89k, K4 ~78k, so arithmetic is the limit, not device memory. All run the
 velocity MLP on the tensor cores (`csrc/ode_mlp_tc.cuh`): a warp takes two
-tiles of 16 samples, each sample three rows where the det is taken
+tiles of 16 samples, each sample three rows where the Jacobian is needed
 (primal and two tangent streams) and one row where it is not (K3's primal
-transports), and the hidden products run on `mma.sync` m16n8k8 in 3xTF32
-(each operand split into two TF32 parts, three products: fp32 accuracy);
-the per-sample work (base heads, draw, log p0, det) stays one lane a
-sample. K2 keeps `csrc/ode_mlp.cuh`'s fp32 MLP on the CUDA cores: one
-thread a sample, the weights staged in shared memory once per block and
-read as warp-wide broadcasts, state and both tangent streams in
-registers. All take the condition's part of the first layer once per
-sample instead of once per step. The TPU kernels' lane packing, roll
-shuffles and output compaction, and K3's `interleave` and `tile`
-scheduling knobs, have no counterpart.
+transports, K2's warm starts), and the hidden products run on `mma.sync`
+m16n8k8 in 3xTF32 (each operand split into two TF32 parts, three
+products: fp32 accuracy); the per-sample work (base heads, draw, log p0,
+det) stays one lane a sample, and the exact K2's 2x2 Newton solves are
+local to each lane's registers. All take the condition's part of the first
+layer once per sample instead of once per step. The TPU kernels' lane
+packing, roll shuffles and output compaction, and K3's `interleave` and
+`tile` scheduling knobs, have no counterpart.
 
 Det: K1, K4, K3 and reverse K2 carry the two tangent streams across the steps and
 take one 2x2 det at the end; exact K2 multiplies the forward step dets at
@@ -303,12 +301,12 @@ K3_INFO = ("K3 disk 3x32 det", "K3 disk 3x32 primal", "K3 spherical 4x32 det", "
 
 def kernel_resources() -> dict:
     """{instantiation: {registers, local_bytes, blocks_per_sm, shared_bytes}}
-    of K1 and K4 (each with the eps and the Philox draw) and of K3's five
-    nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
+    of K1 and K4 (each with the eps and the Philox draw), K2 (exact and
+    reverse) and K3's five nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
     `cudaFuncGetAttributes` and `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
     on the current card."""
     out = {}
-    for lib, fn, names in ((_lib(), "bsdf_fused_ode_kernel_info", ("K1 eps", "K1 philox")),
+    for lib, fn, names in ((_lib(), "bsdf_fused_ode_kernel_info", ("K1 eps", "K1 philox", "K2 exact", "K2 reverse")),
                            (_lib_sph(), "bsdf_fused_sph_kernel_info", ("K4 eps", "K4 philox")),
                            (_lib_transport(), "bsdf_fused_transport_kernel_info", K3_INFO)):
         for which, name in enumerate(names):

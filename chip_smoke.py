@@ -11,25 +11,26 @@ Phases, each of which raises on failure:
   1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`,
      one nvcc per source, all started together; print each kernel's ptxas
      lines and its tensor-core instructions (HMMA, HGMMA) counted in the
-     library's SASS by `cuobjdump`; every K1, K4 and K3 instantiation must
-     have the three passes of 3xTF32 (a whole number of hidden layers of
-     them: 144, 48 or 192 HMMA) and spill nothing;
+     library's SASS by `cuobjdump`; every K1, K2, K4 and K3 instantiation
+     must have the three passes of 3xTF32 (a whole number of hidden layers
+     of them: 144, 48 or 192 HMMA) and spill nothing;
   2. print the card's name and power limit, and the registers, local bytes
-     and blocks an SM of each K1, K4, K3 and K5 instantiation; turn TF32
-     off (the plain versions run in full fp32);
+     and blocks an SM of each K1, K2, K4, K3 and K5 instantiation; turn
+     TF32 off (the plain versions run in full fp32);
   3. make full-width weights from a numpy seed (disk 3 x 32; spherical
      4 x 32 and its 6 x 64 teacher), write them with the port's `.npz`
      writer, read them back, and build the neural BSDFs;
   4. hold K1, K2 and K4 against their plain PyTorch versions on the card, at
-     2^20 rows and at 2^20 - 37 (a partly masked block), K4 from explicit
-     eps and from its in-kernel draw; hold K3 against its plain version
+     2^20 rows and at 2^20 - 37 (a partly masked block), K2 exact at 0, 1
+     and 2 Newton iterations and reverse, K4 from explicit eps and from its
+     in-kernel draw; hold K3 against its plain version
      in every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
      reverse, with and without the det, at 2^20 and 2^20 - 37; spherical
      6 x 64 primal at T = 128 and disk primal at T = 256, at 2^16 and
-     2^16 - 37; K1, K4 and K3 (the render's spherical 4 x 32 reverse with
-     the det, and the 6 x 64 teacher at T = 128) again, to the same
-     tolerances, on weights that move x by O(1), where single-pass TF32
-     products would show;
+     2^16 - 37; K1, K2 (exact and reverse, at K1's end points), K4 and K3
+     (the render's spherical 4 x 32 reverse with the det, and the 6 x 64
+     teacher at T = 128) again, to the same tolerances, on weights that
+     move x by O(1), where single-pass TF32 products would show;
   5. write the procedural matpreview-size scene (61,648 triangles,
      `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF), and its
      table-material twin (scene_bsdf-style hook, idx 20, albedo (0.4, 0.8,
@@ -46,7 +47,8 @@ Phases, each of which raises on failure:
      at 16 spp; then one neural-sphere render with the reverse-Euler pdf
      (K3) through `render()`; the launch counts read around each render,
      and checks of the images;
-  9. time each kernel, its plain version and its bound; the plain exact
+  9. time each kernel (K2 exact and reverse), its plain version and its
+     bound; the plain exact
      spherical pdf; one bounce's stages,
      neural-disk, neural-sphere, and neural-sphere with K3's reverse-Euler
      pdf;
@@ -152,19 +154,23 @@ PEAKS = {  # name fragment: (fp32 FLOP/s, bytes/s)
     "H100": (67e12, 3.35e12),  # SXM
 }
 TF32_PEAKS = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
-# The kernels whose MLP runs on the tensor cores (K1, K4, K3), by library:
-# the marker of their kernels' names and how many instantiations each
-# library has; and the precision of their products.
-TC_KERNELS = {"fused_ode.cu": ("sample_pdf_disk_kernel", 2), "fused_sph.cu": ("sample_pdf_sph_kernel", 2),
+# The kernels whose MLP runs on the tensor cores (K1, K2, K4, K3), by
+# library: the marker of their kernels' names and how many instantiations
+# each library has; and the precision of their products. fused_ode.cu's
+# marker is in K1's `sample_pdf_disk_kernel` and K2's `pdf_disk_kernel`
+# alike: two instantiations of each, each function counted once.
+TC_KERNELS = {"fused_ode.cu": ("pdf_disk_kernel", 4), "fused_sph.cu": ("sample_pdf_sph_kernel", 2),
               "fused_transport.cu": ("transport_kernel", 5)}
-PRECISION = {"fused_sample_pdf_disk": "3xtf32", "fused_sample_pdf_spherical": "3xtf32",
+PRECISION = {"fused_sample_pdf_disk": "3xtf32", "fused_pdf_disk": "3xtf32", "fused_sample_pdf_spherical": "3xtf32",
              "fused_transport": "3xtf32"}
-# The mma.sync of one hidden 32 x 32 layer of K1 and K4: 3 passes (lo*hi,
-# hi*lo, hi*hi) x 3 streams (primal, two tangents) x 4 n8 tiles x 4 k8
-# chunks. The layer loop is not unrolled, so each kernel's SASS holds a
-# whole multiple of it; a dropped pass leaves 96 or 48. K3's (`hmma_a_layer`):
-# 3 passes x S streams (3 with the det, 1 without) x (H / 8)^2 tiles: 144,
-# 48, and 192 for its 64-wide primal net.
+# The mma.sync of one hidden 32 x 32 layer of K1, K4 and the reverse K2: 3
+# passes (lo*hi, hi*lo, hi*hi) x 3 streams (primal, two tangents) x 4 n8
+# tiles x 4 k8 chunks. The layer loop is not unrolled, so each kernel's SASS
+# holds a whole multiple of it; a dropped pass leaves 96 or 48. The exact
+# K2 holds one primal evaluation (1 stream) and one with the tangents: 48 +
+# 144 = 192, of which a dropped pass leaves 128, 144 or 176. K3's
+# (`hmma_a_layer`): 3 passes x S streams (3 with the det, 1 without) x
+# (H / 8)^2 tiles: 144, 48, and 192 for its 64-wide primal net.
 HMMA_A_LAYER = 3 * 3 * (32 // 8) ** 2
 # Velocity weights that move x by O(1) (uniform, variance 1.5^2 / fan-in;
 # tests/test_torch_tc_precision.py). The chip's other weights move x by
@@ -270,10 +276,15 @@ def check_kernels(nb, device, n: int) -> dict:
            "z_mean": z.mean(0).tolist(), "z_std": z.std(0).tolist()}
     log(f"  K1 philox vs plain: {k1p}")
 
-    pe, x0e = fo.fused_pdf_disk(w, x, cond, T, exact=True, newton_iters=nb.pdf_newton_iters)
-    pep, x0ep = fo.pdf_disk_plain(w, x, cond, T, exact=True, newton_iters=nb.pdf_newton_iters)
-    k2 = {"x0_abs": max_abs(x0e, x0ep), "pdf_rel": max_rel(pe, pep)}
-    log(f"  K2 exact vs plain: {k2}")
+    k2 = {"x0_abs": 0.0, "pdf_rel": 0.0}
+    for it in sorted({0, 1, nb.pdf_newton_iters}):  # the sampler's newton_iters is the last
+        pe, x0e = fo.fused_pdf_disk(w, x, cond, T, exact=True, newton_iters=it)
+        pep, x0ep = fo.pdf_disk_plain(w, x, cond, T, exact=True, newton_iters=it)
+        r = {"x0_abs": max_abs(x0e, x0ep), "pdf_rel": max_rel(pe, pep)}
+        log(f"  K2 exact, newton_iters {it}, vs plain: {r}")
+        require(bool(torch.isfinite(pe).all() and torch.isfinite(x0e).all()),
+                f"non-finite K2 exact output at newton_iters {it}")
+        k2 = {m: max(v, r[m]) for m, v in k2.items()}
     pr, x0r = fo.fused_pdf_disk(w, x, cond, T, exact=False)
     prp, x0rp = fo.pdf_disk_plain(w, x, cond, T, exact=False)
     k2r = {"x0_abs": max_abs(x0r, x0rp), "pdf_rel": max_rel(pr, prp)}
@@ -357,9 +368,12 @@ def check_spherical(nb, device, n: int) -> dict:
 
 
 def check_strong(device) -> dict:
-    """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN, and
-    K3 in the render's instantiation and as the 6 x 64 teacher, on velocity
-    weights that move x by O(1), to the gates of check_kernels,
+    """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN,
+    K2 (exact at the sampler's newton_iters, and reverse) queried at the
+    plain K1's end points from K1's weights, so that the inverse undoes a
+    map that moves x by O(1), and K3 in the render's instantiation and as
+    the 6 x 64 teacher, on velocity weights that move x by O(1), to the
+    gates of check_kernels,
     check_spherical and check_transport. Products rounded to single-pass
     TF32 would miss them (~1e-3 in x on the CPU emulation). The teacher
     takes 16x the render's steps and keeps the spherical gate:
@@ -391,6 +405,24 @@ def check_strong(device) -> dict:
         require(max(r["x_abs"], r["x0_abs"]) <= tol_x, f"{label} x/x0 differs from plain on O(1)-moving weights")
         require(r["pdf_rel"] <= tol_pdf, f"{label} pdf differs from plain on O(1)-moving weights")
         out[k] = {"max_abs_err": max(r["x_abs"], r["x0_abs"]), "max_rel_err": r["pdf_rel"]}
+        if label == "K1":
+            k2_at = (w, cond, T, xp.contiguous())
+
+    w, cond, T, x_end = k2_at
+    out["fused_pdf_disk"] = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for label, exact in (("K2 exact", True), ("K2 reverse", False)):
+        pdf, x0 = fo.fused_pdf_disk(w, x_end, cond, T, exact=exact, newton_iters=sc.pdf_newton_iters)
+        pdfp, x0p = fo.pdf_disk_plain(w, x_end, cond, T, exact=exact, newton_iters=sc.pdf_newton_iters)
+        r = {"x_moved_max": max_abs(x0p, x_end), "x0_abs": max_abs(x0, x0p), "pdf_rel": max_rel(pdf, pdfp),
+             "det_sign_flips": int((pdfp <= 0).sum())}
+        log(f"  {label} at K1's end points on O(1)-moving weights vs plain: {r}")
+        require(bool(torch.isfinite(pdf).all() and torch.isfinite(x0).all()),
+                f"non-finite {label} output on O(1)-moving weights")
+        require(r["x_moved_max"] >= 1.0, f"{label}: the O(1)-moving weights moved x by {r['x_moved_max']} only")
+        require(r["x0_abs"] <= TOL_X_ABS, f"{label} x0 differs from plain on O(1)-moving weights")
+        require(r["pdf_rel"] <= TOL_PDF_REL, f"{label} pdf differs from plain on O(1)-moving weights")
+        e = out["fused_pdf_disk"]
+        e["max_abs_err"], e["max_rel_err"] = max(e["max_abs_err"], r["x0_abs"]), max(e["max_rel_err"], r["pdf_rel"])
 
     # K3: the render's reverse-Euler pdf transport from the forward end
     # points, and the teacher forward from base-like points
@@ -607,8 +639,10 @@ def work(nb, n: int) -> dict:
     return {
         # cond_enc and a seed in; x, pdf, x0 out
         "fused_sample_pdf_disk": (n * (once + t * step), n * (4 * fo.COND_DIM + 20)),
-        # x and cond_enc in; pdf, x0 out
+        # x and cond_enc in; pdf, x0 out. Exact: a warm start and it + 1
+        # evaluations with the tangents a step; reverse: K1's work
         "fused_pdf_disk": (n * (once + t * (primal + (it + 1) * step)), n * (4 * fo.COND_DIM + 8 + 12)),
+        "fused_pdf_disk reverse": (n * (once + t * step), n * (4 * fo.COND_DIM + 8 + 12)),
     }
 
 
@@ -627,6 +661,8 @@ def times(nb, device, name: str) -> dict:
                                   lambda: fo.sample_pdf_disk_plain(w, cond, T, eps=eps)),
         "fused_pdf_disk": (lambda: fo.fused_pdf_disk(w, x, cond, T, exact=True, newton_iters=it),
                            lambda: fo.pdf_disk_plain(w, x, cond, T, exact=True, newton_iters=it)),
+        "fused_pdf_disk reverse": (lambda: fo.fused_pdf_disk(w, x, cond, T, exact=False),
+                                   lambda: fo.pdf_disk_plain(w, x, cond, T, exact=False)),
     }
     out = {}
     for k, (macs, nbytes) in work(nb, N_MAIN).items():
@@ -647,6 +683,7 @@ def times(nb, device, name: str) -> dict:
     share = (out["fused_sample_pdf_disk"]["ms"] + out["fused_pdf_disk"]["ms"]) / nb_ms
     log(f"time bounce (neural_sample + neural_pdf, N={N_MAIN}): {nb_ms:.4f} ms, "
         f"kernels {100 * share:.1f}% of it")
+    out["fused_pdf_disk"]["reverse"] = out.pop("fused_pdf_disk reverse")  # the kernels line's K2 row
     return out
 
 
@@ -942,16 +979,27 @@ def ptxas_spills(log_text: str) -> dict:
 def hmma_a_layer(fn: str) -> int:
     """One hidden layer's mma.sync of the kernel with mangled name `fn`:
     K3's `transport_kernel<H, NL, XE, JAC, NW>` takes 3 x S x (H / 8)^2 (S = 3
-    with the det, 1 without); K1 and K4 take HMMA_A_LAYER."""
+    with the det, 1 without); K2's `pdf_disk_kernel<H, NL, EXACT>` 48 + 144
+    exact (a primal and a tangent evaluation), HMMA_A_LAYER reverse; K1 and
+    K4 take HMMA_A_LAYER."""
     m = re.search(r"transport_kernelILi(\d+)ELi\d+ELi\d+ELb([01])E", fn)
-    if m is None:
-        return HMMA_A_LAYER
-    return 3 * (3 if m.group(2) == "1" else 1) * (int(m.group(1)) // 8) ** 2
+    if m is not None:
+        return 3 * (3 if m.group(2) == "1" else 1) * (int(m.group(1)) // 8) ** 2
+    m = re.search(r"\dpdf_disk_kernelILi\d+ELi\d+ELb([01])E", fn)  # K2; K1's name is sample_pdf_disk_kernel
+    if m is not None and m.group(1) == "1":
+        return HMMA_A_LAYER // 3 + HMMA_A_LAYER
+    return HMMA_A_LAYER
+
+
+def tc_functions(src: str, names) -> list:
+    """The tensor-core kernels of library `src` among the mangled function
+    names `names`: those that hold the library's marker, each once."""
+    return [fn for fn in names if TC_KERNELS[src][0] in fn]
 
 
 def tensor_core_evidence(libs: dict) -> None:
     """Phase 1: the tensor-core instructions (HMMA, HGMMA) of each CUDA
-    library's kernels, counted in its SASS; each K1, K4 and K3
+    library's kernels, counted in its SASS; each K1, K2, K4 and K3
     instantiation must hold a nonzero whole multiple of its hidden layer's
     count (`hmma_a_layer`), and ptxas must report no spill stores for them."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -965,8 +1013,9 @@ def tensor_core_evidence(libs: dict) -> None:
         if src not in TC_KERNELS:
             continue
         marker, count = TC_KERNELS[src]
-        tc = {fn: c for fn, c in counts.items() if marker in fn}
-        spills = {fn: v for fn, v in ptxas_spills(path.with_suffix(".log").read_text()).items() if marker in fn}
+        tc = {fn: counts[fn] for fn in tc_functions(src, counts)}
+        spills = ptxas_spills(path.with_suffix(".log").read_text())
+        spills = {fn: spills[fn] for fn in tc_functions(src, spills)}
         require(len(tc) == count and all(c["HMMA"] > 0 and c["HMMA"] % hmma_a_layer(fn) == 0
                                          for fn, c in tc.items()),
                 f"{src}: a {marker} instantiation lacks the 3xTF32 products of whole hidden layers: "
@@ -1121,6 +1170,8 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                      "bound_tf32_ms": r["bound_tf32_ms"], "precision": PRECISION.get(k, "fp32"),
                      "n": N_MAIN, "n_ragged": N_RAGGED})
+        if "reverse" in r:  # K2: the row's times are the exact query's (the sampler's default)
+            rows[-1]["reverse"] = {m: r["reverse"][m] for m in ("ms", "plain_ms", "bound_ms", "bound_tf32_ms")}
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
     log(f"[10] total {time.time() - t_start:.1f} s")
     print(smi)

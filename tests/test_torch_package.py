@@ -196,6 +196,9 @@ ptxas info    : Used 128 registers, used 1 barriers, 72 bytes cumulative stack s
 
 
 _K3 = "_ZN51_GLOBAL__N__91546b8d_18_fused_transport_cu_def1201916transport_kernelI{}EEEvPKfS2_S2_PfS3_iii"
+_FUSED_ODE = "_ZN45_GLOBAL__N__1f34553d_12_fused_ode_cu_adcbb23b"
+_K1 = _FUSED_ODE + "22sample_pdf_disk_kernelILi32ELi3ELb{}EEEvPKfS2_PKxS2_PfS5_S5_ii"
+_K2 = _FUSED_ODE + "15pdf_disk_kernelILi32ELi3ELb{}EEEvPKfS2_S2_PfS3_iii"
 
 
 @pytest.mark.parametrize("fn, want", [
@@ -204,8 +207,25 @@ _K3 = "_ZN51_GLOBAL__N__91546b8d_18_fused_transport_cu_def1201916transport_kerne
     (_K3.format("Li64ELi6ELi3ELb0ELi8"), 192),  # spherical 6 x 64 primal: 3 passes x 1 stream x 8 x 8
     ("_ZN45_GLOBAL__N__1f34553d_12_fused_ode_cu_adcbb23b22sample_pdf_disk_kernelILi32ELi3ELb1EEEvPKfS2_PKxS2_PfS5_S5_"
      "ii", 144),  # K1
+    (_K1.format(0), 144),  # K1 with eps
+    (_K2.format(1), 192),  # exact K2: a primal evaluation (48) and one with the tangents (144)
+    (_K2.format(0), 144),  # reverse K2: K1's transport, reversed
 ])
 def test_hmma_count_of_one_hidden_layer(fn, want):
-    """What chip_smoke.py requires each K1, K4 and K3 instantiation's HMMA
-    count to be a whole multiple of, read from its mangled name."""
+    """What chip_smoke.py requires each K1, K2, K4 and K3 instantiation's
+    HMMA count to be a whole multiple of, read from its mangled name."""
     assert _chip_smoke().hmma_a_layer(fn) == want
+
+
+def test_phase_1_marker_counts_k1_and_k2_once_each():
+    """fused_ode.cu's marker matches K1's two instantiations and K2's two,
+    each once, and nothing else of the library; a dropped pass of 3xTF32
+    leaves a count that is no whole multiple of its kernel's layer."""
+    smoke = _chip_smoke()
+    kernels = [_K1.format(0), _K1.format(1), _K2.format(1), _K2.format(0)]
+    names = kernels + [_FUSED_ODE + "6helperEv", "_Z13other_kernelPf"]
+    assert smoke.tc_functions("fused_ode.cu", names) == kernels
+    assert len(kernels) == smoke.TC_KERNELS["fused_ode.cu"][1]
+    exact, reverse = smoke.hmma_a_layer(_K2.format(1)), smoke.hmma_a_layer(_K2.format(0))
+    assert all(dropped % exact for dropped in (48 + 96, 32 + 144, 32 + 96))
+    assert 96 % reverse

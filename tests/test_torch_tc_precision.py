@@ -1,7 +1,8 @@
-"""Whether 3xTF32 tensor-core products keep the kernels' transports to
-their fp32 gates, checked on the CPU before any card runs it.
+"""Whether 3xTF32 tensor-core products keep the kernels' transports and
+pdf queries to their fp32 gates, checked on the CPU before any card runs
+it.
 
-K1, K4 and K3 (`csrc/ode_mlp_tc.cuh`) run the hidden products of the
+K1, K2, K4 and K3 (`csrc/ode_mlp_tc.cuh`) run the hidden products of the
 velocity MLP on TF32 tensor cores with each operand split a = hi + lo,
 hi = tf32(a), lo = tf32(a - hi), and take hi*hi + hi*lo + lo*hi with fp32
 sums; layer 0 and the output layer stay fp32. This file emulates that:
@@ -9,11 +10,15 @@ sums; layer 0 and the output layer stay fp32. This file emulates that:
 the low 13 mantissa bits cleared), and `transport_3xtf32` is the kernels'
 transport (forward or reverse; with the det, two tangent streams carried
 across the T steps and one 2x2 det at the end; without it, K3's primal
-transport) with the hidden products so split. The emulation
-isolates the split: its sigmoid is exact (`torch.sigmoid`), where the
-kernels take `__expf` and `__frcp_rn`, so it does not bound the shipped
-kernels. Their own precision check is chip_smoke.py's `check_strong`,
-which holds K1, K4 and K3 to their gates on weights like these.
+transport) with the hidden products so split; `pdf_query_3xtf32` is K2's
+disk pdf query: the exact one (for t = T-1..0 a reverse-Euler warm start,
+`newton_iters` closed-form 2x2 Newton updates, the det at the converged
+point, pdf = p0 / prod det) or the reverse one (the reverse transport with
+the det, pdf = p0 * det). The emulation isolates the split: its sigmoid is
+exact (`torch.sigmoid`), where the kernels take `__expf` and `__frcp_rn`,
+so it does not bound the shipped kernels. Their own precision check is
+chip_smoke.py's `check_strong`, which holds K1, K2, K4 and K3 to their
+gates on weights like these.
 
 Held, on numpy-seeded weights and x0, for K1's net (disk 3 x 32, T = 4,
 4,096 rows), K4's (spherical 4 x 32, T = 8, 4,096 rows), K3's on the render
@@ -30,6 +35,14 @@ trained flow does (`_weights`):
   `_step_det` over the T steps) at the tolerances of
   tests/test_torch_ode.py: x 1e-5 absolute, det 1e-4 relative (x only for
   the primal transport, which takes no det).
+And for K2's net (disk 3 x 32, T = 4, 4,096 rows, queried at the fp32
+forward transport's end points), exact at 0, 1 and 2 Newton iterations
+and reverse:
+- against the port's fp32 `ops/fused_ode.py::pdf_disk_plain`, x0 to 2.5e-6
+  and the pdf to 2.5e-5 relative, a quarter of the card's gates;
+- against the JAX package's `ode/flow.py::ode_pdf_exact` (exact) and
+  `ode_pdf` (reverse), which return the pdf alone, at
+  tests/test_torch_fused_ode.py's K2 tolerance: 1e-4 relative.
 Single-pass TF32 (hi*hi only) is printed beside it and not gated: it keeps
 about three decimal digits, and at these weights misses the gates (x ~1e-3
 off).
@@ -43,10 +56,15 @@ import numpy as np
 import pytest
 import torch
 
+from bsdf_diffusion_sampling_tpu.models import get_base
+from bsdf_diffusion_sampling_tpu.ode import flow as jflow
 from bsdf_diffusion_sampling_tpu.ops.fused_ode import _xla_transport_with_det
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig
+from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
+from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc, disk_log_prob_from_heads
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
 from bsdf_diffusion_sampling_tpu_torch.ode.flow import transport_with_det
+from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import BASE_COLS, pdf_disk_plain, prepack_disk
 
 # (domain, hidden, layers, T, reverse, with the det, rows, card gate on x,
 # card gate on the det/pdf, relative)
@@ -57,6 +75,12 @@ NETS = {"K1 disk 3x32": ("disk", 32, 3, 4, False, True, 4096, 1e-5, 1e-4),
 X_ATOL_JAX = 1e-5  # tests/test_torch_ode.py
 DET_RTOL_JAX = 1e-4
 GAIN = 1.5
+# K2's queries: (exact, newton_iters); card gates x0 1e-5, pdf 1e-4 relative
+QUERIES = {"K2 exact newton_iters=0": (True, 0), "K2 exact newton_iters=1": (True, 1),
+           "K2 exact newton_iters=2": (True, 2), "K2 reverse": (False, 0)}
+K2_T, K2_ROWS, K2_GATE_X, K2_GATE_PDF = 4, 4096, 1e-5, 1e-4
+PDF_RTOL_JAX = 1e-4  # tests/test_torch_fused_ode.py
+DET_GUARD = 1e-20  # csrc/fused_ode.cu, as the JAX kernel's fused_ode.py:925-926
 
 
 def tf32(a: torch.Tensor) -> torch.Tensor:
@@ -94,37 +118,84 @@ def _encode(domain: str, x: torch.Tensor, m: torch.Tensor):
     return xe, mi
 
 
+def velocity_3xtf32(v_params: list, xe: torch.Tensor, alpha: float, cp: torch.Tensor, mi=None, mm=mm_3xtf32):
+    """One velocity evaluation as the kernels take it: (v (N, 2), tv), with
+    the hidden products through `mm`, layer 0 (its condition part `cp`
+    given) and the output layer in fp32. With input tangents `mi` (N, 2,
+    x columns), tv[:, k] = J_enc mi[:, k], else None."""
+    w0 = v_params[0]["w"]
+    xe_cols = xe.shape[-1]
+    z = xe @ w0[:xe_cols] + alpha * w0[xe_cols] + cp
+    a, d = _silu_and_slope(z)
+    g = None if mi is None else d[:, None] * (mi @ w0[:xe_cols])  # (N, 2, H)
+    for layer in v_params[1:-1]:
+        z = mm(a, layer["w"])
+        a, d = _silu_and_slope(z)
+        if g is not None:
+            g = d[:, None] * mm(g.reshape(-1, g.shape[-1]), layer["w"]).reshape(g.shape)
+    return a @ v_params[-1]["w"], None if g is None else g @ v_params[-1]["w"]
+
+
+def _cond_part(v_params: list, cond: torch.Tensor) -> torch.Tensor:
+    """cond_enc @ W0[x columns + 1:]: the step-invariant part of layer 0."""
+    return cond @ v_params[0]["w"][-cond.shape[1]:]
+
+
 def transport_3xtf32(domain: str, v_params: list, x: torch.Tensor, cond: torch.Tensor, T: int, mm=mm_3xtf32,
                      reverse: bool = False, with_jac: bool = True):
     """The kernels' transport: T Euler steps, forward (alpha = t/T, x +=
     v/T) or reverse (alpha = 1 - t/T, x -= v/T); with `with_jac` the two
     tangent streams d(state)/d(x_start) carried and one det at the end,
-    else the primal alone and det None. The hidden products through `mm`,
-    layer 0 and the output layer in fp32."""
-    w0 = v_params[0]["w"]
-    xe_cols = w0.shape[0] - 1 - cond.shape[1]
-    cp = cond @ w0[xe_cols + 1:]  # the step-invariant part of layer 0
+    else the primal alone and det None."""
+    cp = _cond_part(v_params, cond)
     h = 1.0 / T
     sg = -h if reverse else h
     m = torch.eye(2).expand(x.shape[0], 2, 2).clone()
     for t in range(T):
         alpha = 1.0 - t * h if reverse else t * h
         xe, mi = _encode(domain, x, m)
-        z = xe @ w0[:xe_cols] + alpha * w0[xe_cols] + cp
-        a, d = _silu_and_slope(z)
+        v, tv = velocity_3xtf32(v_params, xe, alpha, cp, mi if with_jac else None, mm)
         if with_jac:
-            g = d[:, None] * (mi @ w0[:xe_cols])  # (N, 2, H)
-        for layer in v_params[1:-1]:
-            z = mm(a, layer["w"])
-            a, d = _silu_and_slope(z)
-            if with_jac:
-                g = d[:, None] * mm(g.reshape(-1, g.shape[-1]), layer["w"]).reshape(g.shape)
-        if with_jac:
-            m = m + sg * (g @ v_params[-1]["w"])
-        x = x + sg * (a @ v_params[-1]["w"])
+            m = m + sg * tv
+        x = x + sg * v
     if not with_jac:
         return x, None
     return x, m[:, 0, 0] * m[:, 1, 1] - m[:, 1, 0] * m[:, 0, 1]
+
+
+def pdf_query_3xtf32(v_params: list, base_params: dict, y: torch.Tensor, cond: torch.Tensor, T: int, exact: bool,
+                     newton_iters: int, mm=mm_3xtf32):
+    """K2's disk pdf query, (pdf, x0) of query points y, as the kernel takes
+    it. Exact: for t = T-1..0 the warm start g = y - h v(y), `newton_iters`
+    guarded 2x2 Newton updates of g + h v(g) = y and det(I + h J) at the
+    last g, all in one loop, then y = g; pdf = p0 / prod det. Otherwise the
+    reverse transport with the det; pdf = p0 * det. p0 from the base heads
+    in fp32."""
+    if exact:
+        cp = _cond_part(v_params, cond)
+        h = 1.0 / T
+        eye = torch.eye(2).expand(y.shape[0], 2, 2)
+        det_acc = torch.ones(y.shape[0])
+        for t in range(T - 1, -1, -1):
+            alpha = t * h
+            g = y - h * velocity_3xtf32(v_params, y, alpha, cp, mm=mm)[0]
+            for it in range(newton_iters + 1):
+                v, tv = velocity_3xtf32(v_params, g, alpha, cp, eye, mm)  # tv[:, k] = column k of J
+                a, b = 1.0 + h * tv[:, 0, 0], h * tv[:, 1, 0]
+                c, d = h * tv[:, 0, 1], 1.0 + h * tv[:, 1, 1]
+                det = a * d - b * c
+                if it == newton_iters:
+                    det_acc = det_acc * det
+                    break
+                f = g + h * v - y
+                dg = torch.where(det.abs() > DET_GUARD, det, torch.ones_like(det))
+                g = g - torch.stack([(d * f[:, 0] - b * f[:, 1]) / dg, (-c * f[:, 0] + a * f[:, 1]) / dg], -1)
+            y = g
+        x0, det = y, det_acc
+    else:
+        x0, det = transport_3xtf32("disk", v_params, y, cond, T, mm=mm, reverse=True)
+    p0 = torch.exp(disk_log_prob_from_heads(*disk_heads_from_enc(base_params, cond[:, :BASE_COLS]), x0))
+    return (p0 / det if exact else p0 * det), x0
 
 
 def _weights(rng: np.random.Generator, d_in: int, hidden: int, layers: int) -> list:
@@ -140,9 +211,9 @@ def _weights(rng: np.random.Generator, d_in: int, hidden: int, layers: int) -> l
 
 
 def _setup(domain: str, hidden: int, layers: int, T: int, reverse: bool, n: int, seed: int = 0):
-    """Weights, their tensors, the transport's start points and cond_enc.
-    A reverse transport starts from the fp32 forward transport's end points,
-    as the pdf query starts from a sample."""
+    """Weights, their tensors, the transport's start points, cond_enc and
+    omega_i. A reverse transport starts from the fp32 forward transport's
+    end points, as the pdf query starts from a sample."""
     rng = np.random.default_rng(seed)
     cfg = ModelConfig(domain=domain, velocity_hidden=hidden, velocity_layers=layers)
     if domain == "disk":
@@ -158,7 +229,7 @@ def _setup(domain: str, hidden: int, layers: int, T: int, reverse: bool, n: int,
     if reverse:
         with torch.no_grad():
             x = transport_with_det(domain, tv, x, cond, T)[0]
-    return v, tv, x, cond
+    return v, tv, x, cond, omega.astype(np.float32)
 
 
 def _jax_transport_with_det(domain: str, v: list, x: np.ndarray, cond: np.ndarray, T: int, reverse: bool):
@@ -176,7 +247,7 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 @pytest.fixture(scope="module", params=list(NETS), ids=list(NETS))
 def net(request):
     domain, hidden, layers, T, reverse, jac, n, gate_x, gate_det = NETS[request.param]
-    v, tv, x0, cond = _setup(domain, hidden, layers, T, reverse, n)
+    v, tv, x0, cond, _ = _setup(domain, hidden, layers, T, reverse, n)
     with torch.no_grad():
         ref = transport_with_det(domain, tv, x0, cond, T, reverse=reverse)
         tc = transport_3xtf32(domain, tv, x0, cond, T, reverse=reverse, with_jac=jac)
@@ -241,3 +312,56 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     hi = tf32(a)
     lo = tf32(a - hi)
     assert float(((hi + lo - a).abs() / a.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.fixture(scope="module")
+def k2_net():
+    """K2's net on O(1)-moving weights with the JAX package's disk base, and
+    its query points: the fp32 forward transport's end points."""
+    v, tv, y, cond, omega = _setup("disk", 32, 3, K2_T, True, K2_ROWS, seed=1)
+    b = get_base("disk").init(jax.random.key(1))
+    return dict(v=v, tv=tv, y=y, cond=cond, omega=omega, b=b, w=prepack_disk(tv, params_from_jax(b, "cpu")))
+
+
+@pytest.fixture(scope="module", params=list(QUERIES), ids=list(QUERIES))
+def k2_query(request, k2_net):
+    exact, iters = QUERIES[request.param]
+    s = k2_net
+    with torch.no_grad():
+        ref = pdf_disk_plain(s["w"], s["y"], s["cond"], K2_T, exact=exact, newton_iters=iters)
+        tc = pdf_query_3xtf32(s["tv"], s["w"].base_params, s["y"], s["cond"], K2_T, exact, iters)
+        one = pdf_query_3xtf32(s["tv"], s["w"].base_params, s["y"], s["cond"], K2_T, exact, iters, mm=mm_1xtf32)
+    return dict(name=request.param, exact=exact, iters=iters, ref=ref, tc=tc, one=one, **s)
+
+
+def test_k2_3xtf32_holds_a_quarter_of_the_card_gates(k2_query):
+    (pdf, x0), (pdf_r, x0_r), (pdf_1, x0_1) = k2_query["tc"], k2_query["ref"], k2_query["one"]
+    err_x, err_pdf = float((x0 - x0_r).abs().max()), _rel(pdf, pdf_r)
+    print(f"\n{k2_query['name']}: 3xTF32 x0 {err_x:.3g} abs, pdf {err_pdf:.3g} rel; single-pass TF32 (not "
+          f"gated) x0 {float((x0_1 - x0_r).abs().max()):.3g}, pdf {_rel(pdf_1, pdf_r):.3g}; x moves up to "
+          f"{float((x0_r - k2_query['y']).abs().max()):.3g}")
+    assert bool(torch.isfinite(pdf).all() and torch.isfinite(x0).all())
+    assert bool((pdf_r > 0).all())  # no det changes sign: the map stays invertible
+    assert err_x <= K2_GATE_X / 4, err_x
+    assert err_pdf <= K2_GATE_PDF / 4, err_pdf
+
+
+def test_k2_3xtf32_matches_the_jax_pdf(k2_query):
+    s = k2_query
+    jv = [{"w": jnp.asarray(layer["w"])} for layer in s["v"]]
+    args = ("disk", jv, s["b"], jnp.asarray(s["y"].numpy()), jnp.asarray(s["omega"]), jnp.asarray(s["cond"].numpy()),
+            K2_T)
+    want = jflow.ode_pdf_exact(*args, newton_iters=s["iters"]) if s["exact"] else jflow.ode_pdf(*args)
+    np.testing.assert_allclose(s["tc"][0].numpy(), np.asarray(want), rtol=PDF_RTOL_JAX)
+
+
+def test_k2_exact_query_with_fp32_products_is_the_plain_one(k2_net):
+    """With fp32 products the emulated Newton loop is the plain
+    `newton_inverse` (the updates and the det in one loop there too, by
+    another route): the 3xTF32 numbers above measure the split alone."""
+    s = k2_net
+    with torch.no_grad():
+        pdf, x0 = pdf_query_3xtf32(s["tv"], s["w"].base_params, s["y"], s["cond"], K2_T, True, 2, mm=torch.matmul)
+        pdf_r, x0_r = pdf_disk_plain(s["w"], s["y"], s["cond"], K2_T, exact=True, newton_iters=2)
+    assert float((x0 - x0_r).abs().max()) <= 1e-6
+    assert _rel(pdf, pdf_r) <= 1e-5

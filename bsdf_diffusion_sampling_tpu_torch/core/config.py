@@ -82,6 +82,33 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Stage schedule, the reference CLI tables' defaults
+    (`disk_domain_sampling.py:144-153`, `spherical_domain_sampling.py:211-220`).
+    `mesh_axes` is kept as data: the port trains on one device."""
+
+    batch_pretrain: int = 9_800_000
+    iters_pretrain: int = 10_000
+    lr_pretrain: float = 3e-4
+
+    batch_diffusion: int = 4_900_000
+    iters_diffusion: int = 40_000
+    lr_diffusion: float = 1e-3
+
+    iters_rectify: int = 40_000
+    timestep_rectify: int = 256
+    num_samples_rectify: int = 2**16
+    batch_wi_rectify: int = 2**6
+    lr_rectify: float = 1e-3
+
+    save_every: int = 1000
+    log_every: int = 100
+    seed: int = 0
+    checkpoint_dir: str = "./checkpoints"
+    mesh_axes: tuple = (("data", -1),)  # -1 == all devices
+
+
+@dataclass(frozen=True)
 class SamplerConfig:
     """Inference-time ODE settings (T per domain as in the reference's
     `rendering/utils/mlp_brdf_sampling.py:17,106`)."""

@@ -10,6 +10,8 @@ All functions are batched over the leading axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -37,6 +39,17 @@ def cart_to_spher(w: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     theta = torch.arccos(torch.clamp(w[..., 2] / (r + eps), -1.0, 1.0))
     phi = torch.atan2(w[..., 1], w[..., 0])
     return torch.stack([theta, phi], dim=-1)
+
+
+def wrap_angle(phi: torch.Tensor) -> torch.Tensor:
+    """Wrap angles to [-pi, pi) (a floor mod, as `jnp.mod`)."""
+    return torch.remainder(phi + math.pi, 2.0 * math.pi) - math.pi
+
+
+def shortest_arc_delta(phi_to: torch.Tensor, phi_from: torch.Tensor) -> torch.Tensor:
+    """Signed shortest angular difference phi_to - phi_from in [-pi, pi): the
+    flow-matching target on the periodic phi axis."""
+    return wrap_angle(phi_to - phi_from)
 
 
 def encode_spherical_x(x: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-from bsdf_diffusion_sampling_tpu_torch.models.encoding import positional_encoding
-from bsdf_diffusion_sampling_tpu_torch.models.mlp import mlp_apply
+from bsdf_diffusion_sampling_tpu_torch.models.encoding import encoded_dim, positional_encoding
+from bsdf_diffusion_sampling_tpu_torch.models.mlp import init_mlp, mlp_apply
 from bsdf_diffusion_sampling_tpu_torch.models.von_mises import von_mises_log_prob, von_mises_sample
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -33,8 +33,18 @@ class BaseDensity(NamedTuple):
     """Bundles the pure functions for one base-density family."""
 
     domain: str
+    init: callable
     sample: callable
     log_prob: callable
+
+
+def _base_init(gen: torch.Generator, hidden: int = 16, pe_bands: int = 3) -> dict:
+    """The heads' MLP [PE(omega_i, pe_bands), hidden, 4] with biases, from
+    `gen`; both families share the shape."""
+    return {"net": init_mlp(gen, [encoded_dim(2, pe_bands), hidden, 4], bias=True), "pe_bands": pe_bands}
+
+
+disk_base_init = spherical_base_init = _base_init
 
 
 def disk_heads_from_enc(params: dict, enc: torch.Tensor):
@@ -107,8 +117,8 @@ def spherical_base_log_prob(params: dict, x: torch.Tensor, omega_i: torch.Tensor
     return spherical_log_prob_from_heads(_spherical_heads(params, omega_i), x)
 
 
-DISK_BASE = BaseDensity("disk", disk_base_sample, disk_base_log_prob)
-SPHERICAL_BASE = BaseDensity("spherical", spherical_base_sample, spherical_base_log_prob)
+DISK_BASE = BaseDensity("disk", disk_base_init, disk_base_sample, disk_base_log_prob)
+SPHERICAL_BASE = BaseDensity("spherical", spherical_base_init, spherical_base_sample, spherical_base_log_prob)
 
 
 def get_base(domain: str) -> BaseDensity:

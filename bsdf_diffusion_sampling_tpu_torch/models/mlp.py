@@ -9,10 +9,25 @@ package.
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+def init_mlp(gen: torch.Generator, dims: Sequence[int], bias: bool = False) -> List[dict]:
+    """Kaiming-uniform layers as `torch.nn.Linear` draws them (U(-b, b), b =
+    1 / sqrt(fan_in), for the weights and the biases), on the generator's
+    device. The stream is torch's, not `jax.random`'s."""
+    params = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        bound = 1.0 / math.sqrt(d_in)
+        layer = {"w": (torch.rand((d_in, d_out), generator=gen, device=gen.device) * 2.0 - 1.0) * bound}
+        if bias:
+            layer["b"] = (torch.rand((d_out,), generator=gen, device=gen.device) * 2.0 - 1.0) * bound
+        params.append(layer)
+    return params
 
 
 def mlp_apply(params: List[dict], x: torch.Tensor, activation=F.silu) -> torch.Tensor:

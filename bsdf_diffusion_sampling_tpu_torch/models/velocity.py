@@ -14,7 +14,12 @@ import torch
 
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig
 from bsdf_diffusion_sampling_tpu_torch.models.encoding import positional_encoding
-from bsdf_diffusion_sampling_tpu_torch.models.mlp import mlp_apply
+from bsdf_diffusion_sampling_tpu_torch.models.mlp import init_mlp, mlp_apply
+
+
+def velocity_init(gen: torch.Generator, cfg: ModelConfig) -> List[dict]:
+    """A bias-free net [velocity_in_dim, hidden x layers, 2] from `gen`."""
+    return init_mlp(gen, [cfg.velocity_in_dim] + [cfg.velocity_hidden] * cfg.velocity_layers + [2], bias=False)
 
 
 def encode_condition(omega_i: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

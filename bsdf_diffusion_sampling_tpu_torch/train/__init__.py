@@ -1,1 +1,2 @@
-"""Checkpoints in the JAX package's .npz format."""
+"""Training: the losses, the three stages and their stage files, in the JAX
+package's .npz format."""

@@ -26,11 +26,11 @@ Phases, each of which raises on failure:
      in-kernel draw; hold K3 against its plain version
      in every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
      reverse, with and without the det, at 2^20 and 2^20 - 37; spherical
-     6 x 64 primal at T = 128 and disk primal at T = 256, at 2^16 and
-     2^16 - 37; K1, K2 (exact and reverse, at K1's end points), K4 and K3
-     (the render's spherical 4 x 32 reverse with the det, and the 6 x 64
-     teacher at T = 128) again, to the same tolerances, on weights that
-     move x by O(1), where single-pass TF32 products would show;
+     6 x 64 primal at T = 128 and 256 and disk primal at T = 256, at 2^16
+     and 2^16 - 37; K1, K2 (exact and reverse, at K1's end points), K4 and
+     K3 (the render's spherical 4 x 32 reverse with the det, and the 6 x 64
+     teacher at T = 128 and 256) again, to the same tolerances, on weights
+     that move x by O(1), where single-pass TF32 products would show;
   5. write the procedural matpreview-size scene (61,648 triangles,
      `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF), and its
      table-material twin (scene_bsdf-style hook, idx 20, albedo (0.4, 0.8,
@@ -52,7 +52,19 @@ Phases, each of which raises on failure:
      spherical pdf; one bounce's stages,
      neural-disk, neural-sphere, and neural-sphere with K3's reverse-Euler
      pdf;
-  10. print the `kernels` line and the `ok` line.
+  10. the training path: the MCMC ensemble against a GGX pdf grid (KL <
+     0.05) and its ms a sweep with the CUDA graph and eager; `cli/train.py`
+     on the phase-5 measured BRDF (disk) at the CLI's widths and batches
+     (MCMC 10 bands x 50 walkers x 2,500 sweeps; pretrain 9.8M rows,
+     diffusion 4.9M, rectify 2^22 pairs at T = 256; 30 / 30 / 3
+     iterations), with the dataset, the losses, K3's launches (one a
+     rectify iteration) and its first pairs against the plain transport
+     checked; a second call that resumes every stage and takes one rectify
+     step; full-sphere training on table material 20 (the 6 x 64 teacher);
+     K3 timed at rectify's 2^22 rows; the trained disk checkpoint rendered
+     through `cli/render.py` (neural-disk, 16 spp);
+  11. print the `training` line, the card's line, the `kernels` line and
+     the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -60,6 +72,8 @@ Imports nothing of JAX: the port stands alone on the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -74,15 +88,19 @@ import torch
 
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
 from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
+from bsdf_diffusion_sampling_tpu_torch.bsdf.analytic import ggx_shading_disk
 from bsdf_diffusion_sampling_tpu_torch.bsdf.materials import BSDF_MATERIALS
+from bsdf_diffusion_sampling_tpu_torch.data.datasets import generate_brdf_dataset
+from bsdf_diffusion_sampling_tpu_torch.data.mcmc import ensemble_mcmc, make_domain_log_prob
 from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
-from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact
+from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact, transport
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
 from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
+from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
 from bsdf_diffusion_sampling_tpu_torch.render import traverse8 as t8
 from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
 from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
@@ -98,7 +116,9 @@ from bsdf_diffusion_sampling_tpu_torch.render.lambert import cosine_sample, make
 from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, neural_pdf, neural_sample
 from bsdf_diffusion_sampling_tpu_torch.render.procedural import TABLE, write_scene
 from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, load_scene
+from bsdf_diffusion_sampling_tpu_torch.train import stages
 from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree, save_pytree
+from bsdf_diffusion_sampling_tpu_torch.utils.validation import histogram_grid_2d, kl_divergence_grid, pdf_grid_2d
 
 N_MAIN = 1 << 20  # the wavefront of the main path, the checks and the timings
 N_RAGGED = N_MAIN - 37  # a size whose last block of 128 threads is partly masked
@@ -180,6 +200,7 @@ HMMA_A_LAYER = 3 * 3 * (32 // 8) ** 2
 STRONG_SCALE = 1.5 * math.sqrt(3.0)
 K3_MAIN = "spherical 4x32 reverse det T=8"  # K3's instantiation on the render path
 K3_TEACHER = "spherical 6x64 forward primal T=128"  # rectify's teacher pairs
+K3_TEACHER_256 = "spherical 6x64 forward primal T=256"  # the training CLI's T (`cli/train.py`)
 
 
 def tf32_peak(name: str) -> float:
@@ -367,16 +388,24 @@ def check_spherical(nb, device, n: int) -> dict:
             "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"])}
 
 
+def transport_fp64(domain: str, w, x: torch.Tensor, cond: torch.Tensor, T: int) -> torch.Tensor:
+    """The plain primal transport in float64: the yardstick for how far each
+    float32 transport (the kernel's, the plain one's) is from the map."""
+    with torch.no_grad():
+        v64 = [{k: t.double() for k, t in layer.items()} for layer in w.v_params]
+        return transport(domain, v64, x.double(), cond.double(), T)
+
+
 def check_strong(device) -> dict:
     """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN,
     K2 (exact at the sampler's newton_iters, and reverse) queried at the
     plain K1's end points from K1's weights, so that the inverse undoes a
     map that moves x by O(1), and K3 in the render's instantiation and as
-    the 6 x 64 teacher, on velocity weights that move x by O(1), to the
-    gates of check_kernels,
+    the 6 x 64 teacher (at T = 128 and at the training CLI's T = 256), on
+    velocity weights that move x by O(1), to the gates of check_kernels,
     check_spherical and check_transport. Products rounded to single-pass
     TF32 would miss them (~1e-3 in x on the CPU emulation). The teacher
-    takes 16x the render's steps and keeps the spherical gate:
+    takes 16x (32x) the render's steps and keeps the spherical gate:
     tests/test_torch_tc_precision.py's emulation of its 3xTF32 products
     lands 1.4e-6 from fp32 at T = 128 (two fp32 orders differ by 1.1e-6)."""
     sc = SamplerConfig()
@@ -433,11 +462,16 @@ def check_strong(device) -> dict:
     x_end = fo.transport_plain("spherical", net, x0, cond, sc.T_spherical, with_jac=False)[0].contiguous()
     out["fused_transport"] = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for label, w, x, c, T, reverse, jac in ((K3_MAIN, net, x_end, cond, sc.T_spherical, True, True),
-                                            (K3_TEACHER, teacher, x0[:N_LONG], cond[:N_LONG], 128, False, False)):
+                                            (K3_TEACHER, teacher, x0[:N_LONG], cond[:N_LONG], 128, False, False),
+                                            (K3_TEACHER_256, teacher, x0[:N_LONG], cond[:N_LONG], 256, False,
+                                             False)):
         xk, dk = fo.fused_transport_packed(w, "spherical", x, c, T, reverse=reverse, with_jac=jac)
         xp, dp = fo.transport_plain("spherical", w, x, c, T, reverse=reverse, with_jac=jac)
         r = {"n": x.shape[0], "x_moved_max": max_abs(xp, x), "x_abs": max_abs(xk, xp),
              "det_rel": max_rel(dk, dp) if jac else 0.0, "det_sign_flips": int((dp <= 0).sum()) if jac else None}
+        if not jac:  # the teacher: both fp32 results against an fp64 transport (printed, not gated)
+            x64 = transport_fp64("spherical", w, x, c, T)
+            r["x_abs_vs_fp64"], r["plain_vs_fp64"] = max_abs(xk.double(), x64), max_abs(xp.double(), x64)
         log(f"  K3 {label} on O(1)-moving weights vs plain: {r}")
         require(bool(torch.isfinite(xk).all() and torch.isfinite(dk).all()),
                 f"K3 {label}: non-finite output on O(1)-moving weights")
@@ -467,8 +501,8 @@ def k3_cases(nb_disk, nb_sph, teacher, device) -> list:
                 label = f"{dom} {nb.packed.layers}x{nb.packed.hidden} {'reverse' if reverse else 'forward'} " \
                         f"{'det' if jac else 'primal'} T={nb.T}"
                 cases.append((label, nb.packed, dom, (x if reverse else x0).contiguous(), cond, nb.T, reverse, jac))
-    cases.append((K3_TEACHER, teacher, "spherical", x0s[:N_LONG].contiguous(),
-                  cond_s[:N_LONG], 128, False, False))
+    for label, T in ((K3_TEACHER, 128), (K3_TEACHER_256, 256)):
+        cases.append((label, teacher, "spherical", x0s[:N_LONG].contiguous(), cond_s[:N_LONG], T, False, False))
     cases.append(("disk 3x32 forward primal T=256", nb_disk.packed, "disk", x0d[:N_LONG].contiguous(),
                   cond_d[:N_LONG], 256, False, False))
     return cases
@@ -923,6 +957,276 @@ def bounce_breakdown(label: str, scene, mb, device, depth: int = 1) -> dict:
     return med
 
 
+# ------------------------------------------------------------- training ----
+
+# The training path at the CLI's full widths and batches, few iterations:
+# MCMC at 10 bands x 50 walkers x (500 + 2000) sweeps (1,000,000 rows),
+# pretrain at 9.8M rows, flow matching at 4.9M, rectify at 2^6 x 2^16 =
+# 2^22 pairs a iteration through the teacher's T = 256 transport (K3).
+TRAIN_MCMC = {"bands": 10, "walkers": 50, "burnin": 500, "steps": 2000}
+TRAIN_ITERS = {"pretrain": 30, "diffusion": 30, "rectify": 3}
+TRAIN_SPHERE_RECTIFY = 2
+TRAIN_SPP = 16  # the trained checkpoint's neural-disk render
+N_RECTIFY = 64 * (1 << 16)  # rectify's pairs a iteration, the CLI's 2^6 omega_i x 2^16
+MCMC_CHECK_WI = (0.35, 0.0)  # tests/test_mcmc_external.py's omega_i
+MCMC_CHECK_BINS = 12
+SWEEP_TIMING = {True: (200, 2200), False: (100, 600)}  # graph or eager: (short, long) runs, sweeps
+LOSS_LINE = re.compile(r"^\[([\w-]+)/(\w+)\] step (\d+)/(\d+) loss (\S+)", re.M)
+
+
+def train_argv(d: str, out: str, domain: str, material: str, iters_rectify: int) -> list:
+    return ["--domain", domain, "--material", material, "--bsdf-dir", d, "--out", out, "--device", "cuda",
+            *(a for k, v in TRAIN_MCMC.items() for a in (f"--mcmc-{k}", str(v))),
+            "--batch-pretrain", "9800000", "--batch-diffusion", "4900000",
+            "--iters-pretrain", str(TRAIN_ITERS["pretrain"]), "--iters-diffusion", str(TRAIN_ITERS["diffusion"]),
+            "--iters-rectify", str(iters_rectify), "--timestep-rectify", "256", "--num-samples-rectify", "2**16",
+            "--batch-wi-rectify", "2**6", "--save-every", "10", "--log-every", "1"]
+
+
+class Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s: str) -> int:
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+
+class PairRecorder:
+    """Within its block, wraps `train/stages.py::make_rectify_pairgen`: each
+    pair generator call's K3 launches are recorded, and the first call keeps
+    N_LONG of its pairs (every n / N_LONG-th, so every omega_i block is in)
+    with what recomputes them. Nothing is launched here."""
+
+    def __enter__(self):
+        self.calls, self.first, self.orig = [], None, stages.make_rectify_pairgen
+
+        def make(domain, cfg, T):
+            inner = self.orig(domain, cfg, T)
+
+            def pairgen(teacher, base_params, gen, n_wi, n_per_wi):
+                before = fo.launches["fused_transport"]
+                x0, x1, wi = inner(teacher, base_params, gen, n_wi, n_per_wi)
+                self.calls.append(fo.launches["fused_transport"] - before)
+                if self.first is None:
+                    sl = slice(None, None, max(x0.shape[0] // N_LONG, 1))
+                    self.first = (domain, cfg, T, teacher, x0.shape[0], x0[sl].clone(), x1[sl].clone(),
+                                  wi[sl].clone())
+                return x0, x1, wi
+
+            return pairgen
+
+        stages.make_rectify_pairgen = make
+        return self
+
+    def __exit__(self, *exc):
+        stages.make_rectify_pairgen = self.orig
+
+
+def train_run(argv: list) -> dict:
+    """`cli/train.py` with its log kept, the launch counts set to 0 just
+    before and read just after, and the pair generator recorded."""
+    buf = io.StringIO()
+    with PairRecorder() as rec, contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+        (params, stats), counts = counted(lambda: train_cli.main(argv))
+    return {"params": params, "stats": stats, "counts": counts, "log": buf.getvalue(), "rec": rec}
+
+
+def check_dataset(path: str, domain: str) -> dict:
+    """The cached MCMC dataset: shape, finite, in support, each band's
+    omega_i in its band."""
+    s = np.load(path)
+    bands, steps, walkers = TRAIN_MCMC["bands"], TRAIN_MCMC["steps"], TRAIN_MCMC["walkers"]
+    wi, wo = s[:, :2], s[:, 2:]
+    if domain == "disk":
+        r = np.sqrt((wi.astype(np.float64) ** 2).sum(-1)).reshape(bands, -1)
+        edge = np.arange(bands + 1)[:, None] / bands
+        in_support = bool(((wo.astype(np.float64) ** 2).sum(-1) <= 1.0).all())
+    else:
+        r = wi[:, 0].astype(np.float64).reshape(bands, -1)
+        edge = np.arange(bands + 1)[:, None] * (math.pi / bands)
+        in_support = bool(((wo[:, 0] > 0) & (wo[:, 0] < math.pi) & (np.abs(wo[:, 1]) < math.pi)
+                           & (np.abs(wi[:, 1]) < math.pi)).all())
+    in_band = bool(((r > edge[:-1] - 1e-6) & (r <= edge[1:] + 1e-6)).all())
+    out = {"shape": list(s.shape), "finite": bool(np.isfinite(s).all()), "in_support": in_support,
+           "in_band": in_band, "mean_wi_dot_wo": float(np.mean(wi * wo))}
+    log(f"  dataset {domain}: {out}")
+    require(tuple(s.shape) == (bands * steps * walkers, 4), f"dataset {domain}: shape {s.shape}")
+    require(out["finite"] and in_support and in_band, f"dataset {domain}: non-finite or out of support: {out}")
+    return out
+
+
+def check_run(run: dict, domain: str, n_rectify: int, resumed: bool) -> dict:
+    """Every logged loss finite; a fresh pretrain's last NLL below its
+    first; K3 launched once a rectify iteration and nowhere else; the first
+    iteration's pairs recomputed by the plain transport within 2e-5."""
+    losses = {}
+    for stage, dom, it, _, v in LOSS_LINE.findall(run["log"]):
+        losses.setdefault(stage, []).append((int(it), float(v)))
+    require(all(math.isfinite(v) for vals in losses.values() for _, v in vals), f"{domain}: a loss is not finite")
+    rec = run["rec"]
+    k3 = run["counts"]["fused_transport"]
+    out = {"losses_logged": {k: len(v) for k, v in losses.items()}, "k3_launches": k3, "k3_per_pairgen": rec.calls,
+           "stages": {k: {"iters": v["iters"], "ms_median": v["ms_median"],
+                          "peak_gib": v["peak_bytes"] / 2**30 if v["peak_bytes"] is not None else None}
+                      for k, v in run["stats"].items() if k != "mcmc"},
+           "mcmc_seconds": run["stats"]["mcmc"]["seconds"]}
+    require(k3 == n_rectify and rec.calls == [1] * n_rectify,
+            f"{domain}: K3 launched {k3} times, {rec.calls} in the pair generator, expected 1 in each of "
+            f"{n_rectify} rectify iterations")
+    require(all(run["counts"][k] == 0 for k in fo.launches if k != "fused_transport"),
+            f"{domain}: another kernel was launched in training: {run['counts']}")
+    if not resumed:
+        pre = losses["pretrain"]
+        out["pretrain_nll_first_last"] = (pre[0][1], pre[-1][1])
+        require(pre[0][0] == 0 and pre[-1][1] < pre[0][1], f"{domain}: the pretrain NLL did not fall: {pre}")
+    dom, cfg, T, teacher, n, x0, x1, wi = rec.first
+    cond = encode_condition(wi, cfg)
+    with torch.no_grad():
+        xp, _ = fo.transport_plain(dom, teacher, x0, cond, T, with_jac=False)
+    x64 = transport_fp64(dom, teacher, x0, cond, T)
+    out["pairs"] = {"rows": n, "checked": x0.shape[0], "T": T, "teacher": f"{teacher.layers}x{teacher.hidden}",
+                    "x_abs": max_abs(x1, xp), "x_moved_max": max_abs(xp, x0), "x_max": float(xp.abs().max()),
+                    "x_abs_vs_fp64": max_abs(x1.double(), x64), "plain_vs_fp64": max_abs(xp.double(), x64)}
+    log(f"  {domain}{' resumed' if resumed else ''}: {out}")
+    require(bool(torch.isfinite(x1).all()) and out["pairs"]["x_abs"] <= TOL_SPH_X_ABS,
+            f"{domain}: rectify pairs differ from the plain transport: {out['pairs']}")
+    return out
+
+
+def mcmc_check(device) -> dict:
+    """The ensemble at a fixed omega_i on ggx_shading_disk(roughness 0.4), 64
+    walkers x 2500 sweeps, against the pdf grid of each cell's integral at
+    KL < 0.05 (against cell centres the KL of any chain stays ~0.045)."""
+    wi = torch.tensor(MCMC_CHECK_WI, device=device)
+
+    def density(x):
+        inside = (x**2).sum(-1) < 1.0
+        f = ggx_shading_disk(wi.expand(x.shape[0], 2), torch.where(inside[:, None], x, 0.0), roughness=0.4)
+        return torch.where(inside, torch.clamp(f, min=0.0), 0.0)
+
+    def log_prob(x):
+        f = density(x)
+        return torch.where(f > 0, torch.log(torch.clamp(f, min=1e-38)), -math.inf)
+
+    g = root_generator(SEED + 20, device)
+    x0 = -0.5 * wi + 0.05 * torch.randn((64, 2), generator=g, device=device)
+    chain, acc = ensemble_mcmc(g, log_prob, x0, nsteps=2500, burn_in=500)
+    lo, hi = (-1.0, -1.0), (1.0, 1.0)
+    hist = histogram_grid_2d(chain.reshape(-1, 2).cpu().numpy(), lo, hi, MCMC_CHECK_BINS)
+    out = {"walkers": 64, "sweeps": 2500, "burn_in": 500, "acceptance": float(acc),
+           "kl": kl_divergence_grid(hist, pdf_grid_2d(density, lo, hi, MCMC_CHECK_BINS, device=device, sub=8)),
+           "kl_cell_centres": kl_divergence_grid(hist, pdf_grid_2d(density, lo, hi, MCMC_CHECK_BINS, device=device))}
+    log(f"  MCMC check: {out}")
+    require(bool(torch.isfinite(chain).all()) and 0.1 < out["acceptance"] < 0.9, f"MCMC check: {out}")
+    require(out["kl"] < 0.05, f"MCMC check: KL {out['kl']} against the GGX pdf grid")
+    return out
+
+
+def time_sweeps(d: str, device) -> dict:
+    """ms a sweep of the dataset's ensemble (10 bands x 50 walkers on the
+    measured disk target), with the CUDA graph and eager: the difference of
+    a long and a short run over their sweeps, so the start-up (the first
+    chunk, the capture) drops out."""
+    pdf_fn = train_cli.make_target_pdf(train_cli.build_parser().parse_args(["--material", "synthetic_rgb",
+                                                                             "--bsdf-dir", d]), device)
+    bands, walkers = TRAIN_MCMC["bands"], TRAIN_MCMC["walkers"]
+    x0 = generate_brdf_dataset(SEED + 21, pdf_fn, nsteps=1, nwalkers=walkers, piecewise=bands, burn_in=100,
+                               device=device).reshape(bands, walkers, 4)  # the last sweep: walkers in support
+    bounds = (torch.arange(bands, device=device) / bands, torch.arange(1, bands + 1, device=device) / bands)
+    log_prob = make_domain_log_prob(pdf_fn, "disk")
+    out = {}
+    for graph, runs in SWEEP_TIMING.items():
+        secs = []
+        for n in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ensemble_mcmc(root_generator(SEED + 22, device), log_prob, x0, nsteps=n, log_prob_args=bounds,
+                          graph=graph)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out["graph" if graph else "eager"] = 1e3 * (secs[1] - secs[0]) / (runs[1] - runs[0])
+    log(f"  MCMC ms a sweep (10 bands x 50 walkers, measured disk target): {out}")
+    return out
+
+
+def time_rectify_k3(teachers: dict, device, name: str) -> dict:
+    """K3 at rectify's shape, 2^22 rows and T = 256, with the trained
+    teachers, its plain version and its bound."""
+    rng = np.random.default_rng(SEED + 23)
+    n = N_RECTIFY
+    out = {}
+    for label, (w, dom) in teachers.items():
+        x0 = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32) * 0.3).to(device)
+        wi = hemisphere(torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(device))
+        cond = encode_condition(wi[:, :2] if dom == "disk" else cart_to_spher(wi), ModelConfig(domain=dom))
+        p, _ = net_macs(w.hidden, w.layers, fo.X_ENC[dom])
+        out[label] = timed(f"fused_transport rectify {label} T=256",
+                           lambda: fo.fused_transport_packed(w, dom, x0, cond, 256, with_jac=False),
+                           lambda: fo.transport_plain(dom, w, x0, cond, 256, with_jac=False),
+                           n * (fo.COND_DIM * w.hidden + 256 * p), n * (8 + 4 * fo.COND_DIM + 8 + 4), n, name,
+                           plain_runs=2)
+    return out
+
+
+def training_phase(d: str, scenes: dict, device, name: str) -> dict:
+    """Phase 10: the MCMC check and sweep times; disk training through
+    `cli/train.py` on the phase-5 scene's measured BRDF, its resume, and
+    full-sphere training on table material 20; K3 at rectify's shape; the
+    trained disk checkpoint rendered through `cli/render.py`."""
+    out = {"mcmc_check": mcmc_check(device), "mcmc_sweep_ms": time_sweeps(d, device)}
+    runs = {}
+    disk_out = os.path.join(d, "train_disk")
+    runs["disk"] = train_run(train_argv(d, disk_out, "disk", "synthetic_rgb", TRAIN_ITERS["rectify"]))
+    out["disk"] = check_run(runs["disk"], "disk", TRAIN_ITERS["rectify"], resumed=False)
+    out["disk"]["dataset"] = check_dataset(os.path.join(disk_out, "mcmc_disk_synthetic_rgb.npy"), "disk")
+    resume = train_run(train_argv(d, disk_out, "disk", "synthetic_rgb", TRAIN_ITERS["rectify"] + 1))
+    out["disk_resume"] = check_run(resume, "disk", 1, resumed=True)
+    for stage, at in (("pretrain", TRAIN_ITERS["pretrain"]), ("diffusion-simpler", TRAIN_ITERS["diffusion"]),
+                      ("rectify", TRAIN_ITERS["rectify"])):
+        require(f"[{stage}/disk] resumed at step {at}" in resume["log"], f"resume: {stage} did not resume at {at}")
+    require(resume["stats"]["rectify/disk"]["iters"] == 1 and resume["stats"]["pretrain/disk"]["iters"] == 0,
+            f"resume: took {[(k, v['iters']) for k, v in resume['stats'].items() if k != 'mcmc']} steps")
+    sph_out = os.path.join(d, "train_sphere")
+    runs["sphere_full"] = train_run(train_argv(d, sph_out, "sphere_full", "table:20", TRAIN_SPHERE_RECTIFY))
+    out["sphere_full"] = check_run(runs["sphere_full"], "sphere_full", TRAIN_SPHERE_RECTIFY, resumed=False)
+    out["sphere_full"]["dataset"] = check_dataset(os.path.join(sph_out, "mcmc_sphere_full_table_20.npy"),
+                                                  "sphere_full")
+
+    teachers = {"disk 3x32": (fo.prepack_velocity(runs["disk"]["params"]["teacher"]), "disk"),
+                "spherical 6x64": (fo.prepack_velocity(runs["sphere_full"]["params"]["teacher"]), "spherical")}
+    out["k3_rectify"] = time_rectify_k3(teachers, device, name)
+    defaults = train_cli.build_parser().parse_args([])
+    for (dom, run), k3 in zip(runs.items(), ("disk 3x32", "spherical 6x64")):
+        st = {k.split("/")[0]: v["ms_median"] for k, v in run["stats"].items() if k != "mcmc"}
+        out[dom]["k3_share_of_rectify"] = out["k3_rectify"][k3]["ms"] / st["rectify"]
+        ms = (defaults.iters_pretrain * st["pretrain"]
+              + defaults.iters_diffusion * sum(v for k, v in st.items() if k.startswith("diffusion"))
+              + defaults.iters_rectify * st["rectify"]
+              + (defaults.mcmc_steps + defaults.mcmc_burnin) * out["mcmc_sweep_ms"]["graph"])
+        out[dom]["extrapolated_cli_hours"] = ms / 3.6e6
+    log(f"  K3's share of a rectify iteration: disk {out['disk']['k3_share_of_rectify']:.3f}, "
+        f"sphere_full {out['sphere_full']['k3_share_of_rectify']:.3f}; at the CLI's iterations: disk "
+        f"{out['disk']['extrapolated_cli_hours']:.2f} h, sphere_full {out['sphere_full']['extrapolated_cli_hours']:.2f} h")
+
+    def cli(spp, depth):
+        return render_cli.main(["--scene", scenes["measured"], "--bsdf-dir", d, "--material", "synthetic_rgb",
+                                "--mode", "neural-disk", "--checkpoint", os.path.join(disk_out, "final.npz"),
+                                "--spp", str(spp), "--spp-chunk", str(RENDER_CHUNK), "--max-depth", str(depth),
+                                "--width", str(RENDER_RES), "--height", str(RENDER_RES), "--device", str(device),
+                                "--out", os.path.join(d, "trained_neural-disk")])
+
+    cli(RENDER_CHUNK, 2)  # warm-up
+    (img, dt), counts = counted(lambda: cli(TRAIN_SPP, RENDER_DEPTH))
+    out["render"] = check_render("trained neural-disk", img, dt, TRAIN_SPP, counts)
+    return out
+
+
 KERNELS = {
     "fused_sample_pdf_disk": ("K1 disk sample+pdf",
                               "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:579 _fused_sample_pdf_kernel "
@@ -1145,6 +1449,11 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
             "bounces, expected 2 a bounce")
     log(f"[9] times: ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    training = training_phase(d, scenes, device, name)
+    log(f"[10] training: disk and sphere_full through cli/train.py at full batch, the resume, the trained "
+        f"checkpoint's render: ok ({time.time() - t0:.1f} s)")
+
     # launches: each kernel from the run of the path that runs it, counts
     # set to 0 just before: K1 from the neural-disk render, K4 from the
     # neural-spherical render, K3 from the neural-sphere render with the
@@ -1172,8 +1481,16 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                      "n": N_MAIN, "n_ragged": N_RAGGED})
         if "reverse" in r:  # K2: the row's times are the exact query's (the sampler's default)
             rows[-1]["reverse"] = {m: r["reverse"][m] for m in ("ms", "plain_ms", "bound_ms", "bound_tf32_ms")}
+        if k == "fused_transport":  # the training path: one launch a rectify iteration, at 2^22 rows, T = 256
+            rows[-1]["launches_training"] = {run: training[run]["k3_launches"]
+                                             for run in ("disk", "disk_resume", "sphere_full")}
+            rows[-1]["rectify"] = {label: {m: r[m] for m in ("ms", "plain_ms", "bound_ms", "bound_by", "n")}
+                                   for label, r in training["k3_rectify"].items()}
+        if k == "fused_sample_pdf_disk":  # the render of the freshly trained disk checkpoint
+            rows[-1]["launches_trained_render"] = training["render"]["launches"][k]
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
-    log(f"[10] total {time.time() - t_start:.1f} s")
+    log(f"[11] total {time.time() - t_start:.1f} s")
+    print(json.dumps({"training": {"card": smi, **training}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

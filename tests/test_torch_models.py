@@ -134,3 +134,31 @@ def test_coords_match_jax(name):
 def test_disk_round_trip():
     w = tt(_dirs())
     torch.testing.assert_close(tc.disk_to_cart(tc.cart_to_disk(w)), w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("domain, hidden, layers", [("disk", 32, 3), ("spherical", 32, 4), ("sphere_full", 64, 6)])
+def test_initialisers_match_jax_layout(domain, hidden, layers):
+    """velocity_init and the base's init draw torch's stream, not
+    jax.random's: they are held to JAX's shapes and Kaiming-uniform bounds,
+    and to the same tree as `params_from_jax` makes of JAX's."""
+    from bsdf_diffusion_sampling_tpu.core.config import ModelConfig as JCfg
+    from bsdf_diffusion_sampling_tpu.models.velocity import velocity_init as j_velocity_init
+    from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig as TCfg
+    from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
+    from bsdf_diffusion_sampling_tpu_torch.models.velocity import velocity_init as t_velocity_init
+
+    kw = dict(domain=domain, velocity_hidden=hidden, velocity_layers=layers)
+    jv = params_from_jax(j_velocity_init(jax.random.key(0), JCfg(**kw)), "cpu")
+    tv = t_velocity_init(root_generator(0, "cpu"), TCfg(**kw))
+    jb = params_from_jax(jbd.get_base(domain).init(jax.random.key(1)), "cpu")
+    tb = tbd.get_base(domain).init(root_generator(1, "cpu"))
+    assert tb["pe_bands"] == jb["pe_bands"] == 3
+    for t_tree, j_tree in ((tv, jv), (tb["net"], jb["net"])):
+        assert [sorted(l) for l in t_tree] == [sorted(l) for l in j_tree]
+        for tl, jl in zip(t_tree, j_tree):
+            bound = 1.0 / np.sqrt(tl["w"].shape[0])
+            for k in tl:
+                assert tl[k].shape == jl[k].shape and tl[k].dtype == torch.float32
+                assert float(tl[k].abs().max()) <= bound and float(tl[k].abs().max()) > 0.5 * bound
+    # the same generator state gives the same weights
+    assert torch.equal(t_velocity_init(root_generator(0, "cpu"), TCfg(**kw))[0]["w"], tv[0]["w"])

@@ -28,6 +28,9 @@ RENDER_SLICE = ["native.bvhlib", "native.exr", "render.mesh", "render.bvh8", "re
                 "render.envmap", "render.scene", "render.integrator", "render.procedural", "cli.render"]
 SPHERICAL_SLICE = ["models.von_mises", "models.base_density", "bsdf.microfacet", "bsdf.principled", "bsdf.rough",
                    "bsdf.materials", "render.neural", "ops.fused_ode"]
+TRAIN_SLICE = ["core.config", "geometry.coords", "geometry.sampling", "models.mlp", "models.velocity",
+               "models.base_density", "bsdf.analytic", "data.mcmc", "data.datasets", "utils.validation",
+               "train.losses", "train.checkpoint", "train.stages", "cli.train", "cli.assemble_checkpoint"]
 
 
 def test_import_pulls_in_no_jax():
@@ -45,8 +48,9 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=120, check=True)
     bad, seen = out.stdout.strip().splitlines()
     assert bad == "[]", bad
-    # the render and spherical slices' modules are among those imported
-    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}" for m in RENDER_SLICE + SPHERICAL_SLICE} <= set(seen.split())
+    # the render, spherical and training slices' modules are among those imported
+    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}" for m in RENDER_SLICE + SPHERICAL_SLICE + TRAIN_SLICE} \
+        <= set(seen.split())
 
 
 def test_no_source_names_the_jax_package():
@@ -60,7 +64,7 @@ def test_no_source_names_the_jax_package():
         assert not imports_jax.search(text), p
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "SamplerConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "SamplerConfig", "TrainConfig"])
 def test_config_copy_matches_jax(name):
     jf = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}
     tf = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}
@@ -104,21 +108,28 @@ def test_make_neural_bsdf_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("entry", ["load_measured", "measured_from_tensors", "load_scene", "build_scene",
-                                   "render"])
+                                   "render", "generate_brdf_dataset", "train_material", "cli.train"])
 def test_loaders_and_render_default_to_the_card(entry):
-    """The BRDF and scene loaders and `render()` put their tables on the
-    card unless asked for the CPU, so what they return fits together; the
-    default raises here, before any file is read."""
+    """The BRDF and scene loaders, `render()`, the dataset generator, the
+    trainer and the training CLI run on the card unless asked for the CPU,
+    so what they return fits together; the default raises here, before any
+    file is read."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from bsdf_diffusion_sampling_tpu_torch.bsdf import measured
+    from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
+    from bsdf_diffusion_sampling_tpu_torch.data import datasets
     from bsdf_diffusion_sampling_tpu_torch.render import integrator, scene
+    from bsdf_diffusion_sampling_tpu_torch.train import stages
 
     call = {"load_measured": lambda: measured.load_measured("absent.bsdf"),
             "measured_from_tensors": lambda: measured.measured_from_tensors({"phi_i": [0.0], "theta_i": [0.0]}),
             "load_scene": lambda: scene.load_scene("absent.xml"),
             "build_scene": lambda: scene.build_scene(None),
-            "render": lambda: integrator.render(None, None)}[entry]
+            "render": lambda: integrator.render(None, None),
+            "generate_brdf_dataset": lambda: datasets.generate_brdf_dataset(0, None, cache_path="absent.npy"),
+            "train_material": lambda: stages.train_material(None, tcfg.ModelConfig(), tcfg.TrainConfig()),
+            "cli.train": lambda: train_cli.main(["--material", "ggx:0.5", "--out", "absent"])}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
 

@@ -5,9 +5,16 @@ samples in accumulation passes on the card (or the CPU with
 `--device cpu`), writes EXR + PNG and prints the wall-clock time. The
 matball is a measured BRDF (`scene_measured.xml`: `--mode gt` samples the
 measured BRDF itself, `neural-disk` and `neural-spherical` a trained
-sampler from `--checkpoint`) or a material-table entry with an albedo tint
-(`scene_bsdf.xml`: `gt` samples a two-sided cosine lobe, `neural-sphere` the
-trained full-sphere sampler).
+sampler) or a material-table entry with an albedo tint (`scene_bsdf.xml`:
+`gt` samples a two-sided cosine lobe, `neural-sphere` the trained
+full-sphere sampler). A neural sampler's weights come from one `.npz`
+(`--weights checkpoint`, the default: `--checkpoint`) or from the reference
+implementation's `.pth` checkpoint directory of each matball's material
+(`--weights reference`: `--reference-ckpts`; a measured ball reads
+`<filename>_<domain>/`, a material-table ball `bsdf_<idx>_spherical/`). A
+measured matball whose `.bsdf` file is missing is an error, unless
+`--allow-substitute` renders `chm_mint_rgb.bsdf` in its place and records
+it in `<out>.meta.json`.
 
   python -m bsdf_diffusion_sampling_tpu_torch.cli.render \\
       --scene scene_measured.xml --bsdf-dir bsdfs --material chm_mint_rgb --mode gt --out out/gt
@@ -16,14 +23,15 @@ trained full-sphere sampler).
       --checkpoint checkpoints/chm_mint_disk/final.npz --out out/nn
   python -m bsdf_diffusion_sampling_tpu_torch.cli.render \\
       --scene scene_bsdf.xml --mode neural-sphere --checkpoint bsdf_20_sphere.npz --out out/sphere
-
-`--weights reference` and `--allow-substitute` of the JAX CLI are not
-ported: the reference checkpoints and RGL files are not in the repository.
+  python -m bsdf_diffusion_sampling_tpu_torch.cli.render \\
+      --scene scene_measured.xml --bsdf-dir bsdfs --material chm_mint_rgb --mode neural-disk \\
+      --weights reference --reference-ckpts checkpoints_new --out out/nn_ref
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import struct
 import time
@@ -42,7 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bsdf-dir", default="", help="the directory of the .bsdf files (measured matballs)")
     p.add_argument("--mode", choices=list(MODES), default="gt",
                    help="gt: the material samples itself; neural-*: the trained sampler of that domain")
-    p.add_argument("--checkpoint", default="", help="an .npz checkpoint (neural modes)")
+    p.add_argument("--checkpoint", default="", help="an .npz checkpoint (neural modes with --weights checkpoint)")
+    p.add_argument("--weights", choices=["checkpoint", "reference"], default="checkpoint",
+                   help="neural modes: 'checkpoint' loads --checkpoint; 'reference' imports each matball's "
+                        "reference .pth checkpoint directory from --reference-ckpts")
+    p.add_argument("--reference-ckpts", default="",
+                   help="the directory of the reference's <material>_<domain>/ checkpoint directories")
+    p.add_argument("--allow-substitute", action="store_true",
+                   help="render chm_mint_rgb (from --bsdf-dir) for a measured matball whose .bsdf file is "
+                        "missing, recorded in <out>.meta.json; without the flag a missing file is an error")
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--spp-chunk", type=int, default=4)
     p.add_argument("--max-depth", type=int, default=12)
@@ -83,9 +99,29 @@ def model_cfg(domain: str):
     return ModelConfig(domain=domain, velocity_hidden=32, velocity_layers=4)
 
 
-def build_matball(ball: dict, args, device):
+def load_neural_params(ball: dict, domain: str, args, device) -> dict:
+    """A matball's neural weights: the one `--checkpoint` file, or the
+    reference checkpoint directory of the ball's material (its filename when
+    idx < 0, else its table index)."""
+    if args.weights == "reference":
+        from bsdf_diffusion_sampling_tpu_torch.interop import import_reference_material
+
+        if not args.reference_ckpts:
+            raise ValueError("--weights reference needs --reference-ckpts")
+        material = ball["filename"] if ball["idx"] < 0 else str(ball["idx"])
+        return import_reference_material(args.reference_ckpts, material, domain, device=device)
+    from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree
+
+    if not args.checkpoint:
+        raise ValueError(f"--mode {args.mode} needs --checkpoint")
+    return load_pytree(args.checkpoint)[0]
+
+
+def build_matball(ball: dict, args, device, substitutions: list | None = None):
     """One MatballFns for one mybsdf hook: a measured BRDF (idx < 0) or a
-    material-table entry with its albedo."""
+    material-table entry with its albedo. A missing `.bsdf` file raises
+    unless `args.allow_substitute`; each substitution is appended to
+    `substitutions`."""
     from bsdf_diffusion_sampling_tpu_torch.render import integrator
 
     domain = MODES[args.mode]
@@ -100,16 +136,22 @@ def build_matball(ball: dict, args, device):
     else:
         from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import load_measured
 
-        brdf = load_measured(os.path.join(args.bsdf_dir, ball["filename"] + ".bsdf"), device=device)
+        path = os.path.join(args.bsdf_dir, ball["filename"] + ".bsdf")
+        if not os.path.exists(path):
+            if not args.allow_substitute:
+                raise FileNotFoundError(f"{path} does not exist; rerun with --allow-substitute to render "
+                                        "chm_mint_rgb in its place (recorded in <out>.meta.json)")
+            print(f"warning: {path} does not exist; substituting chm_mint_rgb for ball {ball['filename']!r}")
+            if substitutions is not None:
+                substitutions.append({"ball": ball["filename"], "substituted": "chm_mint_rgb"})
+            path = os.path.join(args.bsdf_dir, "chm_mint_rgb.bsdf")
+        brdf = load_measured(path, device=device)
     if domain is None:
         return integrator.principled_matball(mat, albedo, device=device) if table else integrator.measured_matball(brdf)
 
     from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf
-    from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree
 
-    if not args.checkpoint:
-        raise ValueError(f"--mode {args.mode} needs --checkpoint")
-    params, _ = load_pytree(args.checkpoint)
+    params = load_neural_params(ball, domain, args, device)
     nb = make_neural_bsdf(domain, model_cfg(domain), params["rectified"], params["base"], brdf, device=device)
     return integrator.neural_matball_sphere(nb, mat, albedo) if table else integrator.neural_matball(nb)
 
@@ -129,7 +171,8 @@ def main(argv=None):
     if len(balls) == 1 and balls[0]["idx"] < 0:
         # single-measured-ball scenes render whatever --material says
         balls[0]["filename"] = args.material
-    mb = tuple(build_matball(b, args, device) for b in balls)
+    substitutions: list = []
+    mb = tuple(build_matball(b, args, device, substitutions) for b in balls)
 
     if device.type == "cuda":
         import torch
@@ -145,6 +188,11 @@ def main(argv=None):
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     write_exr(args.out + ".exr", img)
     write_png(args.out + ".png", (tonemap_srgb(img) * 255).astype(np.uint8))
+    if substitutions:
+        with open(args.out + ".meta.json", "w") as f:
+            json.dump({"material_substitutions": substitutions, "mode": args.mode, "material": args.material}, f,
+                      indent=1)
+        print(f"wrote {args.out}.meta.json (material substitutions)")
     print(f"wrote {args.out}.exr / .png")
     return img, dt
 

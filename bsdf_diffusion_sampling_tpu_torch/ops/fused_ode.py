@@ -102,11 +102,15 @@ class PackedWeights(NamedTuple):
 
 def prepack_velocity(v_params: list) -> PackedWeights:
     """The velocity net alone, for K3; the domain follows from its input
-    width (25 disk, 26 spherical)."""
+    width (25 disk, 26 spherical). The kernels have no bias term, so a
+    layer with a `"b"` raises, where the plain versions would add it."""
     d_in = v_params[0]["w"].shape[0] - 1 - COND_DIM
     domain = {2: "disk", 3: "spherical"}.get(d_in)
     if domain is None or v_params[-1]["w"].shape[1] != 2:
         raise ValueError("expected a velocity net over [x_enc(2 or 3), alpha, cond_enc(22)] -> 2")
+    biased = [i for i, layer in enumerate(v_params) if "b" in layer]
+    if biased:
+        raise ValueError(f"the kernels' velocity nets are bias-free; layers {biased} carry a bias")
     flat = torch.cat([layer["w"].reshape(-1) for layer in v_params]).to(torch.float32).contiguous()
     return PackedWeights(v_params, None, flat, v_params[0]["w"].shape[1], len(v_params) - 1, domain)
 
@@ -478,3 +482,53 @@ def fused_ode_transport(domain: str, v_params: list, x0: torch.Tensor, cond_enc:
     """`fused_transport_packed` from the velocity net's parameter tree."""
     return fused_transport_packed(prepack_velocity(v_params), domain, x0, cond_enc, T, reverse=reverse,
                                   with_jac=with_jac)
+
+
+# ------------------------------------------------------------ differentiable
+
+
+class _TransportDiff(torch.autograd.Function):
+    """K3 with the det in the forward; the backward rematerialises the T
+    steps through the plain `transport_with_det` and takes its vector-Jacobian
+    product (reverse over the forward-mode Jacobian columns). Only the inputs
+    are saved: no per-step activation outlives the forward."""
+
+    @staticmethod
+    def forward(ctx, domain, T, reverse, x0, cond_enc, *weights):
+        ctx.domain, ctx.T, ctx.reverse = domain, T, reverse
+        ctx.save_for_backward(x0, cond_enc, *weights)
+        w = prepack_velocity([{"w": t} for t in weights])
+        return fused_transport_packed(w, domain, x0, cond_enc, T, reverse=reverse, with_jac=True)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_x, g_det):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(len(saved)) if ctx.needs_input_grad[3 + i]]
+        grads = [None] * len(saved)
+        if wanted:
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+                x0, cond_enc, *weights = leaves
+                x, det = transport_with_det(ctx.domain, [{"w": t} for t in weights], x0, cond_enc, ctx.T,
+                                            reverse=ctx.reverse)
+                found = torch.autograd.grad((x, det), [leaves[i] for i in wanted], (g_x, g_det))
+            for i, g in zip(wanted, found):
+                grads[i] = g
+        return (None, None, None, *grads)
+
+
+def fused_transport_diff(domain: str, v_params: list, x0: torch.Tensor, cond_enc: torch.Tensor, T: int,
+                         reverse: bool = False):
+    """Differentiable K3 transport, (x_out, det_prod) as `fused_ode_transport`
+    with the det gives them; gradients flow to every weight of `v_params`,
+    to `x0` and to `cond_enc` (counterpart of the JAX package's
+    `ops/fused_ode.py::fused_transport_diff`, whose backward is the XLA VJP of
+    `_xla_transport_with_det`). Nets: those K3 is built for with the det,
+    disk 3 x 32 and spherical 4 x 32; the 6 x 64 teacher raises."""
+    kdom = "disk" if domain == "disk" else "spherical"
+    w = prepack_velocity(v_params)
+    if (kdom, w.hidden, w.layers, True) not in K3_NETS:
+        raise ValueError(f"the transport kernel has no det instantiation for a {kdom} net of {w.layers} hidden "
+                         f"layers of width {w.hidden}; built: {sorted(K3_NETS)}")
+    return _TransportDiff.apply(kdom, T, reverse, x0, cond_enc, *(layer["w"] for layer in v_params))

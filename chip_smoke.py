@@ -63,8 +63,20 @@ Phases, each of which raises on failure:
      step; full-sphere training on table material 20 (the 6 x 64 teacher);
      K3 timed at rectify's 2^22 rows; the trained disk checkpoint rendered
      through `cli/render.py` (neural-disk, 16 spp);
-  11. print the `training` line, the card's line, the `kernels` line and
-     the `ok` line.
+  11. gradients through K3 (`fused_transport_diff`) at 2^20 rows, disk
+     3 x 32 at T = 4 and spherical 4 x 32 at T = 8 forward and reverse,
+     against plain autograd through `transport_with_det` (rtol 2e-3, atol
+     1e-6), K3 once a forward and never in the backward; the pixel loss of
+     tests/test_diff.py at 512 x 512 x 4 draws against central differences
+     along 3 random directions; reference `.pth` state dicts written at the
+     reference's widths and rendered through `cli/render.py --weights
+     reference` (neural-disk, neural-spherical, neural-sphere; 512 x 512,
+     16 spp, depth 4), the neural-sphere with K3's pdf through render(),
+     `cli/import_reference.py` on each directory and the neural-disk image
+     again from its `final.npz`; `--allow-substitute` at 64 x 64; the zoo's
+     U-Net step and mixture bases on the card;
+  12. print the `training` line, the `differentiable` line, the card's
+     line, the `kernels` line and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -78,6 +90,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -96,9 +109,11 @@ from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
-from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact, transport
+from bsdf_diffusion_sampling_tpu_torch.models.zoo import gmm_disk_base, mixture_spherical_base, unet_apply, unet_init
+from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact, transport, transport_with_det
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
+from bsdf_diffusion_sampling_tpu_torch.cli import import_reference as import_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
 from bsdf_diffusion_sampling_tpu_torch.render import traverse8 as t8
@@ -832,15 +847,19 @@ def counted(fn):
     return out, {**fo.launches, **t8.launches}
 
 
-def check_render(label: str, img, dt: float, spp: int, counts: dict) -> dict:
-    bounces = (spp // RENDER_CHUNK) * RENDER_DEPTH
+def check_render(label: str, img, dt: float, spp: int, counts: dict, depth: int = RENDER_DEPTH,
+                 mode: str | None = None) -> dict:
+    """Gates of a render: finite, not black, and each kernel's launches a
+    bounce as EXPECTED has them for `mode` (the label's second word by
+    default)."""
+    bounces = (spp // RENDER_CHUNK) * depth
     r = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * spp / dt / 1e6, "spp": spp,
          "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
     log(f"render {label}: {r}")
     require(bool(np.isfinite(img).all()) and img.max() > 0, f"render {label}: non-finite or black image")
     require(counts["traverse8"] >= 2 * bounces, f"render {label}: K5 launched {counts['traverse8']} times "
             f"in {bounces} bounces")
-    want = EXPECTED[label.split(" ", 1)[1]]
+    want = EXPECTED[mode or label.split(" ", 1)[1]]
     for k in fo.launches:
         require(counts[k] == want.get(k, 0) * bounces,
                 f"render {label}: {k} launched {counts[k]} times in {bounces} bounces, "
@@ -1227,6 +1246,367 @@ def training_phase(d: str, scenes: dict, device, name: str) -> dict:
     return out
 
 
+# ------------------------------ gradients, reference weights, the zoo ----
+
+# The differentiable transport at the main path's 2^20 rows: (label, weights
+# of phase 3, domain, T, reverse). Gradients against plain autograd through
+# `transport_with_det` on the card at tests/test_diff.py:170-171's
+# tolerance: |got - want| <= atol + rtol |want| elementwise.
+DIFF_CASES = (("disk 3x32 forward T=4", "neural-disk", "disk", 4, False),
+              ("spherical 4x32 forward T=8", "neural-spherical", "spherical", 8, False),
+              ("spherical 4x32 reverse T=8", "neural-spherical", "spherical", 8, True))
+TOL_GRAD_RTOL, TOL_GRAD_ATOL = 2e-3, 1e-6
+# tests/test_diff.py:72-128's pixel loss at 512 x 512 pixels x 4 draws (2^20
+# rows through K3), its gradient against central differences along random
+# unit directions in the velocity weights' space.
+PIXEL_RES, PIXEL_S, PIXEL_T = 512, 4, 4
+FD_H, FD_RTOL, FD_ATOL, FD_DIRECTIONS = 3e-3, 5e-2, 1e-5, 3
+# At these weights the directional derivatives are ~1e-6, so the fp32
+# differences above pass on their atol; the same differences in fp64 through
+# the plain transport are exact to ~1e-8 relative (a CPU rehearsal read
+# 2e-6 against the gradient), and are held to FD64_RTOL with no atol.
+FD64_RTOL = 1e-3
+# The renders with the reference's weights: 512 x 512, 16 spp, depth cut to
+# 4 so that the neural-sphere render (the plain exact spherical pdf, twice
+# a bounce) keeps the phase near a minute; phase 8 runs the same kernels at
+# depth 12.
+REF_SPP, REF_DEPTH = 16, 4
+REF_RENDERS = (("measured", "neural-disk"), ("measured", "neural-spherical"), ("table", "neural-sphere"))
+REF_MATERIAL = "synthetic_rgb"
+SUBSTITUTE_RES = 64
+ZOO_BATCH, ZOO_ROWS = 64, 1 << 16
+
+
+def allclose_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 where torch.allclose holds."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def diff_inputs(domain: str, device, seed: int):
+    """x0 (N_MAIN, 2) and cond_enc: disk x0 ~ 0.3 N(0, 1) at disk-coordinate
+    wi; spherical x0 = (theta in [0.2, 1.3], phi in [-3, 3]) at spherical wi."""
+    rng = np.random.default_rng(seed)
+    wi = hemisphere(torch.from_numpy(rng.random((N_MAIN, 2), dtype=np.float32)).to(device))
+    if domain == "disk":
+        cond, x0 = encode_condition(wi[:, :2], ModelConfig()), 0.3 * rng.standard_normal((N_MAIN, 2))
+    else:
+        cond = encode_condition(cart_to_spher(wi), SPH_CFG)
+        x0 = np.stack([rng.uniform(0.2, 1.3, N_MAIN), rng.uniform(-3.0, 3.0, N_MAIN)], -1)
+    return torch.from_numpy(x0.astype(np.float32)).to(device), cond
+
+
+def transport_loss(x: torch.Tensor, det: torch.Tensor) -> torch.Tensor:
+    return (x * x).sum() + ((det - 1.0) ** 2).sum()
+
+
+def peak_gib(fn):
+    """fn's result and the device memory it allocated at its peak, beyond
+    what was allocated before it, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 2**30
+
+
+def diff_transport(trees: dict, device, name: str) -> dict:
+    """Phase 11a: gradients through `fused_transport_diff` against plain
+    autograd, K3 once a forward and 0 in the backward, times and peaks."""
+    out = {}
+    for i, (label, mode, dom, T, reverse) in enumerate(DIFF_CASES):
+        ws = [torch.from_numpy(layer["w"]).to(device).requires_grad_() for layer in trees[mode]["rectified"]]
+        x0, cond = diff_inputs(dom, device, SEED + 40 + i)
+        leaves = [*ws, x0.requires_grad_(), cond.requires_grad_()]
+        v = [{"w": w} for w in ws]
+
+        def fwd():
+            return fo.fused_transport_diff(dom, v, x0, cond, T, reverse)
+
+        def plain_grads():
+            return torch.autograd.grad(transport_loss(*transport_with_det(dom, v, x0, cond, T, reverse=reverse)),
+                                       leaves)
+
+        (x, det), fwd_counts = counted(fwd)
+        loss = transport_loss(x, det)
+        (g, bwd_counts), peak = peak_gib(lambda: counted(lambda: torch.autograd.grad(loss, leaves, retain_graph=True)))
+        gp, peak_plain = peak_gib(plain_grads)
+        ratio = max(allclose_ratio(a, b, TOL_GRAD_RTOL, TOL_GRAD_ATOL) for a, b in zip(g, gp))
+        rel = max(max_rel(a, b) for a, b in zip(g[:len(ws)], gp[:len(ws)]))
+        require(fwd_counts["fused_transport"] == 1 and sum(fwd_counts.values()) == 1,
+                f"diff {label}: forward launches {fwd_counts}, expected K3 once")
+        require(sum(bwd_counts.values()) == 0, f"diff {label}: backward launched {bwd_counts}")
+        require(all(bool(torch.isfinite(t).all()) for t in g), f"diff {label}: non-finite gradient")
+        require(ratio <= 1.0, f"diff {label}: gradients differ from plain autograd ({ratio:.3g} of the tolerance)")
+        hidden = ws[1].shape[0]
+        p, t = net_macs(hidden, len(ws) - 1, fo.X_ENC[dom])
+        macs, nbytes = N_MAIN * (fo.COND_DIM * hidden + T * (p + 2 * t)), N_MAIN * (8 + 4 * fo.COND_DIM + 12)
+        flops_peak, bytes_peak = next(v for k, v in PEAKS.items() if k in name)
+        t_ops, t_bytes = 2.0 * macs / flops_peak * 1e3, nbytes / bytes_peak * 1e3
+        out[label] = {"n": N_MAIN, "launches_forward": fwd_counts["fused_transport"],
+                      "launches_backward": bwd_counts["fused_transport"], "grad_tolerance_used": ratio,
+                      "weight_grad_max_rel": rel, "ms": cuda_ms(fwd),
+                      "backward_ms": cuda_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True), runs=5,
+                                             warmup=1),
+                      "plain_fwd_bwd_ms": cuda_ms(plain_grads, runs=3, warmup=1),
+                      "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "peak_gib": peak, "plain_peak_gib": peak_plain}
+        log(f"  diff {label}: {out[label]}")
+        del x, det, loss, g, gp
+    return out
+
+
+def pixel_loss(v_params: list, base_params: dict, wi_img: torch.Tensor, eps: torch.Tensor, T: int,
+               transport) -> torch.Tensor:
+    """tests/test_diff.py:72-100's one-bounce direct-light image: per pixel
+    S reparametrised draws of the disk sampler at the pixel's wi (npix, 2),
+    eps (npix, S, 2); radiance L_env(x) f(wi, x) / pdf with a Gaussian
+    lobe for the environment; the loss is the mean pixel energy.
+    `transport(v_params, x0, cond_enc)` gives (x, det)."""
+    npix, s, _ = eps.shape
+    wi = wi_img.repeat_interleave(s, dim=0)
+    cond = encode_condition(wi, ModelConfig())
+    loc, ls = disk_heads_from_enc(base_params, cond[:, :fo.BASE_COLS])
+    e = eps.reshape(-1, 2)
+    x0 = loc + e * torch.exp(ls)
+    log_p0 = (-ls - 0.5 * e * e).sum(-1) - math.log(2.0 * math.pi)
+    x, det = transport(v_params, x0, cond)
+    pdf = torch.exp(log_p0) / det
+    lum = torch.exp(-4.0 * ((x - x.new_tensor([0.2, -0.3])) ** 2).sum(-1))
+    # inside the unit disk, where disk_to_cart's sqrt(1 - r^2) keeps a finite derivative
+    r = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    x_safe = x * (torch.clamp(r, max=0.95) / torch.clamp(r, min=1e-6))
+    f = ggx_shading_disk(wi, x_safe, roughness=0.6, diffuse_prob=0.3)
+    img = (lum * f / torch.clamp(pdf, min=1e-3)).reshape(npix, s).mean(1)
+    return (img * img).mean()
+
+
+def diff_pixel(tree: dict, device) -> dict:
+    """Phase 11b: the pixel loss's gradient through K3 against central
+    differences along FD_DIRECTIONS random unit directions."""
+    rng = np.random.default_rng(SEED + 45)
+    npix = PIXEL_RES * PIXEL_RES
+    wi_img = torch.from_numpy(rng.uniform(-0.5, 0.5, (npix, 2)).astype(np.float32)).to(device)
+    eps = torch.from_numpy(rng.standard_normal((npix, PIXEL_S, 2)).astype(np.float32)).to(device)
+    base = params_from_jax(tree["base"], device)
+    shapes = [layer["w"].shape for layer in tree["rectified"]]
+    flat = torch.cat([torch.from_numpy(layer["w"]).reshape(-1) for layer in tree["rectified"]]).to(device)
+
+    def k3(p, x0, c):
+        return fo.fused_transport_diff("disk", p, x0, c, PIXEL_T)
+
+    def plain(p, x0, c):
+        return transport_with_det("disk", p, x0, c, PIXEL_T)
+
+    def loss_at(f, transport=k3):
+        v, at = [], 0
+        for shape in shapes:
+            v.append({"w": f[at:at + math.prod(shape)].reshape(shape)})
+            at += math.prod(shape)
+        b = {"net": [{k: t.to(f.dtype) for k, t in layer.items()} for layer in base["net"]]}
+        return pixel_loss(v, b, wi_img.to(f.dtype), eps.to(f.dtype), PIXEL_T, transport)
+
+    leaf = flat.clone().requires_grad_()
+
+    def value_and_grad():
+        val = loss_at(leaf)
+        return val, torch.autograd.grad(val, leaf)[0]
+
+    (l0, grad), counts = counted(value_and_grad)
+    require(bool(torch.isfinite(l0)) and bool(torch.isfinite(grad).all()), "pixel loss: non-finite value or gradient")
+    require(counts["fused_transport"] == 1 and sum(counts.values()) == 1,
+            f"pixel loss: launches {counts}, expected K3 once (the forward)")
+    checks = []
+    with torch.no_grad():
+        for _ in range(FD_DIRECTIONS):
+            dvec = rng.standard_normal(flat.shape[0])
+            dvec = torch.from_numpy((dvec / np.linalg.norm(dvec)).astype(np.float32)).to(device)
+            fd = (float(loss_at(flat + FD_H * dvec)) - float(loss_at(flat - FD_H * dvec))) / (2.0 * FD_H)
+            f64, d64 = flat.double(), dvec.double()
+            fd64 = (float(loss_at(f64 + FD_H * d64, plain)) - float(loss_at(f64 - FD_H * d64, plain))) / (2.0 * FD_H)
+            ad = float(grad.double() @ d64)
+            checks.append({"ad": ad, "fd": fd, "tolerance_used": abs(ad - fd) / (FD_ATOL + FD_RTOL * abs(fd)),
+                           "fd_fp64_plain": fd64, "rel_vs_fd_fp64": abs(ad - fd64) / abs(fd64)})
+    out = {"pixels": npix, "samples": PIXEL_S, "rows": npix * PIXEL_S, "T": PIXEL_T, "loss": float(l0.detach()),
+           "launches": counts["fused_transport"], "fd": checks, "value_and_grad_ms": cuda_ms(value_and_grad, runs=5)}
+    log(f"  diff pixel loss: {out}")
+    require(all(c["tolerance_used"] <= 1.0 for c in checks), "pixel loss: gradient disagrees with central differences")
+    require(all(c["rel_vs_fd_fp64"] <= FD64_RTOL for c in checks),
+            "pixel loss: gradient disagrees with fp64 central differences")
+    return out
+
+
+def reference_state_dict(rng, dims: list, bias: bool, scale: float = 1.0) -> dict:
+    """A torch MLP state dict in the reference's layout: linear1..linearN,
+    output; (out, in) weights, Kaiming-uniform from `rng`."""
+    names = [f"linear{i + 1}" for i in range(len(dims) - 2)] + ["output"]
+    sd = {}
+    for name, d_in, d_out in zip(names, dims[:-1], dims[1:]):
+        bound = 1.0 / math.sqrt(d_in)
+        sd[f"{name}.weight"] = torch.from_numpy((scale * rng.uniform(-bound, bound, (d_out, d_in))).astype(np.float32))
+        if bias:
+            sd[f"{name}.bias"] = torch.from_numpy(rng.uniform(-bound, bound, d_out).astype(np.float32))
+    return sd
+
+
+def write_reference_checkpoints(root: str, seed: int) -> None:
+    """The reference's checkpoint directories for REF_MATERIAL (disk, and
+    spherical with no pretrain file of its own) and table material 20
+    (its own pretrain file, the diffusion nets under the legacy names), at
+    the reference's widths: base nets with biases, velocity nets bias-free
+    with weights x 0.5 as `init_weights` makes them."""
+    rng = np.random.default_rng(seed)
+    base, disk, sph, teacher = [14, 16, 4], [25] + [32] * 3 + [2], [26] + [32] * 4 + [2], [26] + [64] * 6 + [2]
+    m, legacy = REF_MATERIAL, "neusample_pos_diffusion_brdf_mcmc_pytorch_emcee_onemode"
+    files = {f"{m}_disk/brdf_pretrain_network{m}.pth": base, f"{m}_disk/brdf_diffusion_network{m}.pth": disk,
+             f"{m}_disk/brdf_rectify_network{m}.pth": disk,
+             f"{m}_spherical/brdf_diffusion_network_simpler{m}.pth": sph,
+             f"{m}_spherical/brdf_diffusion_network_complex{m}.pth": teacher,
+             f"{m}_spherical/brdf_rectify_network{m}.pth": sph,
+             "bsdf_20_spherical/brdf_pretrain_network20.pth": base, f"bsdf_20_spherical/{legacy}32.pth": sph,
+             f"bsdf_20_spherical/{legacy}64.pth": teacher, "bsdf_20_spherical/brdf_rectify_network20.pth": sph}
+    for rel, dims in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        is_base = dims is base
+        torch.save(reference_state_dict(rng, dims, bias=is_base, scale=1.0 if is_base else 0.5), path)
+
+
+def reference_phase(d: str, scenes: dict, device) -> dict:
+    """Phase 11c: renders through `cli/render.py --weights reference`, the
+    importer on each directory, and the neural-disk render again from the
+    imported `final.npz`."""
+    root = os.path.join(d, "checkpoints_new")
+    write_reference_checkpoints(root, SEED + 50)
+
+    def cli(scene, mode, weights, out):
+        return render_cli.main(["--scene", scenes[scene], "--bsdf-dir", d, "--material", REF_MATERIAL, "--mode", mode,
+                                *weights, "--spp", str(REF_SPP), "--spp-chunk", str(RENDER_CHUNK), "--max-depth",
+                                str(REF_DEPTH), "--width", str(RENDER_RES), "--height", str(RENDER_RES),
+                                "--device", str(device), "--out", os.path.join(d, out)])
+
+    ref = ["--weights", "reference", "--reference-ckpts", root]
+    out, images = {}, {}
+    for scene, mode in REF_RENDERS:
+        (img, dt), counts = counted(lambda: cli(scene, mode, ref, f"ref_{scene}_{mode}"))
+        images[mode] = img
+        out[f"{scene} {mode}"] = check_render(f"reference {scene} {mode}", img, dt, REF_SPP, counts, REF_DEPTH, mode)
+
+    imported = {}
+    for material, domain in ((REF_MATERIAL, "disk"), (REF_MATERIAL, "spherical"), ("20", "sphere_full")):
+        path = os.path.join(d, f"imported_{domain}.npz")
+        tree = import_cli.main(["--checkpoints-root", root, "--material", material, "--domain", domain,
+                                "--out", path, "--device", str(device)])
+        back, step = load_pytree(path)
+        same = all(np.array_equal(a["w"], b["w"].cpu().numpy()) for k in ("diffusion", "teacher", "rectified")
+                   for a, b in zip(back[k], tree[k]))
+        require(step == 0 and same, f"import {domain}: final.npz does not hold the imported weights")
+        imported[domain] = tree
+
+    # K3 on the imported weights: the table scene's neural-sphere render with
+    # the reverse-Euler pdf, through render()
+    scene_t = load_scene(scenes["table"], device=device, width=RENDER_RES, height=RENDER_RES)
+    sph = imported["sphere_full"]
+    nb = make_neural_bsdf("sphere_full", SPH_CFG, sph["rectified"], sph["base"],
+                          sampler_cfg=SamplerConfig(pdf_exact=False), device=device)
+    mb = neural_matball_sphere(nb, BSDF_MATERIALS[TABLE[0]], TABLE[1])
+
+    def k3_render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scene_t, mb, seed=0, spp=REF_SPP, spp_chunk=RENDER_CHUNK, max_depth=REF_DEPTH, device=device)
+        return img, time.perf_counter() - t0
+
+    (img, dt), counts = counted(k3_render)
+    out["table neural-sphere K3"] = check_render("reference table neural-sphere K3", img, dt, REF_SPP, counts,
+                                                 REF_DEPTH, "neural-sphere K3")
+
+    (img, dt), counts = counted(lambda: cli("measured", "neural-disk",
+                                            ["--checkpoint", os.path.join(d, "imported_disk.npz")], "imported_disk"))
+    out["imported neural-disk"] = check_render("imported measured neural-disk", img, dt, REF_SPP, counts, REF_DEPTH,
+                                               "neural-disk")
+    ref_img = images["neural-disk"]
+    diff = float(np.abs(img - ref_img).max())
+    out["imported_vs_reference"] = {"max_abs": diff, "mean_pixel": float(ref_img.mean()),
+                                    "bit_equal": bool(np.array_equal(img, ref_img))}
+    log(f"  neural-disk from final.npz vs --weights reference: {out['imported_vs_reference']}")
+    require(diff <= 1e-5 * float(ref_img.mean()), "the imported final.npz renders another image than the reference")
+    return out
+
+
+def substitute_phase(d: str, scenes: dict, device) -> dict:
+    """Phase 11d: a missing .bsdf raises without --allow-substitute and is
+    rendered as chm_mint_rgb, recorded in <out>.meta.json, with it."""
+    shutil.copy(os.path.join(d, f"{REF_MATERIAL}.bsdf"), os.path.join(d, "chm_mint_rgb.bsdf"))
+    out_path = os.path.join(d, "substituted")
+    argv = ["--scene", scenes["measured"], "--bsdf-dir", d, "--material", "aniso_missing", "--mode", "gt",
+            "--spp", "1", "--spp-chunk", "1", "--max-depth", "2", "--width", str(SUBSTITUTE_RES), "--height",
+            str(SUBSTITUTE_RES), "--device", str(device), "--out", out_path]
+    try:
+        render_cli.main(argv)
+    except FileNotFoundError as e:
+        log(f"  without --allow-substitute: FileNotFoundError ({e})")
+    else:
+        raise AssertionError("a missing .bsdf rendered without --allow-substitute")
+    img, _ = render_cli.main(argv + ["--allow-substitute"])
+    with open(out_path + ".meta.json") as f:
+        meta = json.load(f)
+    want = {"material_substitutions": [{"ball": "aniso_missing", "substituted": "chm_mint_rgb"}], "mode": "gt",
+            "material": "aniso_missing"}
+    require(meta == want, f"substitution record {meta}, expected {want}")
+    require(bool(np.isfinite(img).all()) and img.max() > 0, "substituted render: non-finite or black image")
+    log(f"  with --allow-substitute: {meta}")
+    return meta
+
+
+def zoo_phase(device) -> dict:
+    """Phase 11e: one U-Net training step at batch ZOO_BATCH; the two
+    mixture bases' sample and log_prob at ZOO_ROWS rows."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 60)
+    params = unet_init(gen)
+    leaves = [p for layer in params.values() for p in layer.values()]
+    for p in leaves:
+        p.requires_grad_()
+    x = torch.randn((ZOO_BATCH, 32, 32, 1), generator=gen, device=device)
+    alpha = torch.rand((ZOO_BATCH,), generator=gen, device=device)
+
+    def loss():
+        return ((unet_apply(params, x, alpha) - x) ** 2).mean()
+
+    l0 = loss()
+    grads = torch.autograd.grad(l0, leaves)
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            p -= 0.05 * g
+    l1 = loss()
+    l0, l1 = float(l0.detach()), float(l1.detach())
+    require(math.isfinite(l0) and l1 < l0, f"U-Net step: loss {l0} -> {l1}")
+    out = {"unet": {"batch": ZOO_BATCH, "loss_before": l0, "loss_after": l1,
+                    "step_ms": cuda_ms(lambda: torch.autograd.grad(loss(), leaves), runs=3)}}
+    for label, base, wi in (("gmm_disk", gmm_disk_base(n_modes=3), (0.2, -0.3)),
+                            ("mixture_spherical", mixture_spherical_base(n_modes=2), (0.4, 0.1))):
+        p = base.init(gen)
+        omega = torch.tensor([wi], device=device).expand(ZOO_ROWS, 2)
+        xs = base.sample(p, omega, gen)
+        lp = base.log_prob(p, xs, omega)
+        require(tuple(xs.shape) == (ZOO_ROWS, 2) and tuple(lp.shape) == (ZOO_ROWS,), f"{label}: shapes")
+        require(bool(torch.isfinite(xs).all() and torch.isfinite(lp).all()), f"{label}: non-finite sample or log_prob")
+        if label == "mixture_spherical":
+            require(bool((xs[:, 1].abs() <= math.pi + 1e-5).all()), f"{label}: phi outside [-pi, pi]")
+        out[label] = {"rows": ZOO_ROWS, "mean_log_prob": float(lp.mean())}
+    log(f"  zoo on the card: {out}")
+    return out
+
+
+def differentiable_phase(d: str, scenes: dict, trees: dict, device, name: str) -> dict:
+    """Phase 11: the differentiable transport, the pixel loss, the reference
+    importer and `--weights reference`, `--allow-substitute`, the zoo."""
+    return {"transport": diff_transport(trees, device, name), "pixel": diff_pixel(trees["neural-disk"], device),
+            "reference": reference_phase(d, scenes, device), "substitute": substitute_phase(d, scenes, device),
+            "zoo": zoo_phase(device)}
+
+
 KERNELS = {
     "fused_sample_pdf_disk": ("K1 disk sample+pdf",
                               "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:579 _fused_sample_pdf_kernel "
@@ -1437,8 +1817,9 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     scene_t = load_scene(scenes["table"], device=device)
     for mode, ball, sc in (("neural-disk", {"filename": "synthetic_rgb", "idx": -1}, scene),
                            ("neural-sphere", table, scene_t)):
-        mb = render_cli.build_matball(ball, argparse.Namespace(bsdf_dir=d, mode=mode, checkpoint=weights[mode]),
-                                      device)
+        args = render_cli.build_parser().parse_args(["--scene", "", "--bsdf-dir", d, "--mode", mode,
+                                                     "--checkpoint", weights[mode]])
+        mb = render_cli.build_matball(ball, args, device)
         bounce_breakdown(mode, sc, mb, device)
     # the neural-sphere bounce with K3's reverse-Euler pdf, whose two pdf
     # stages each launch K3 once
@@ -1453,6 +1834,11 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     training = training_phase(d, scenes, device, name)
     log(f"[10] training: disk and sphere_full through cli/train.py at full batch, the resume, the trained "
         f"checkpoint's render: ok ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    diff = differentiable_phase(d, scenes, trees, device, name)
+    log(f"[11] gradients through K3 at n = {N_MAIN}, the pixel loss at {PIXEL_RES}x{PIXEL_RES}x{PIXEL_S}, the "
+        f"reference importer and --weights reference, --allow-substitute, the zoo: ok ({time.time() - t0:.1f} s)")
 
     # launches: each kernel from the run of the path that runs it, counts
     # set to 0 just before: K1 from the neural-disk render, K4 from the
@@ -1486,11 +1872,18 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                                              for run in ("disk", "disk_resume", "sphere_full")}
             rows[-1]["rectify"] = {label: {m: r[m] for m in ("ms", "plain_ms", "bound_ms", "bound_by", "n")}
                                    for label, r in training["k3_rectify"].items()}
+            # the differentiable transport: K3 in each forward, none in the backward
+            rows[-1]["diff"] = {**diff["transport"], "pixel_loss": {
+                m: diff["pixel"][m] for m in ("rows", "launches", "value_and_grad_ms")}}
         if k == "fused_sample_pdf_disk":  # the render of the freshly trained disk checkpoint
             rows[-1]["launches_trained_render"] = training["render"]["launches"][k]
+        # the renders with the reference's weights (phase 11)
+        rows[-1]["launches_reference_render"] = {label: r["launches"][k] for label, r in
+                                                 diff["reference"].items() if "launches" in r}
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
-    log(f"[11] total {time.time() - t_start:.1f} s")
+    log(f"[12] total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {"card": smi, **training}}))
+    print(json.dumps({"differentiable": {"card": smi, **diff}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

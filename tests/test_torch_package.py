@@ -31,6 +31,8 @@ SPHERICAL_SLICE = ["models.von_mises", "models.base_density", "bsdf.microfacet",
 TRAIN_SLICE = ["core.config", "geometry.coords", "geometry.sampling", "models.mlp", "models.velocity",
                "models.base_density", "bsdf.analytic", "data.mcmc", "data.datasets", "utils.validation",
                "train.losses", "train.checkpoint", "train.stages", "cli.train", "cli.assemble_checkpoint"]
+DIFF_REFERENCE_ZOO_SLICE = ["ops.fused_ode", "ode.flow", "interop.jax_params", "interop.torch_checkpoints",
+                            "cli.import_reference", "cli.render", "models.zoo"]
 
 
 def test_import_pulls_in_no_jax():
@@ -48,9 +50,9 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=120, check=True)
     bad, seen = out.stdout.strip().splitlines()
     assert bad == "[]", bad
-    # the render, spherical and training slices' modules are among those imported
-    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}" for m in RENDER_SLICE + SPHERICAL_SLICE + TRAIN_SLICE} \
-        <= set(seen.split())
+    # the render, spherical, training and differentiable/reference/zoo slices' modules are among those imported
+    assert {f"bsdf_diffusion_sampling_tpu_torch.{m}"
+            for m in RENDER_SLICE + SPHERICAL_SLICE + TRAIN_SLICE + DIFF_REFERENCE_ZOO_SLICE} <= set(seen.split())
 
 
 def test_no_source_names_the_jax_package():
@@ -108,17 +110,21 @@ def test_make_neural_bsdf_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("entry", ["load_measured", "measured_from_tensors", "load_scene", "build_scene",
-                                   "render", "generate_brdf_dataset", "train_material", "cli.train"])
+                                   "render", "generate_brdf_dataset", "train_material", "cli.train",
+                                   "import_reference_material", "cli.import_reference"])
 def test_loaders_and_render_default_to_the_card(entry):
     """The BRDF and scene loaders, `render()`, the dataset generator, the
-    trainer and the training CLI run on the card unless asked for the CPU,
+    trainer, the training CLI and the reference importer and its CLI run on
+    the card unless asked for the CPU,
     so what they return fits together; the default raises here, before any
     file is read."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from bsdf_diffusion_sampling_tpu_torch.bsdf import measured
+    from bsdf_diffusion_sampling_tpu_torch.cli import import_reference
     from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
     from bsdf_diffusion_sampling_tpu_torch.data import datasets
+    from bsdf_diffusion_sampling_tpu_torch.interop import import_reference_material
     from bsdf_diffusion_sampling_tpu_torch.render import integrator, scene
     from bsdf_diffusion_sampling_tpu_torch.train import stages
 
@@ -129,7 +135,10 @@ def test_loaders_and_render_default_to_the_card(entry):
             "render": lambda: integrator.render(None, None),
             "generate_brdf_dataset": lambda: datasets.generate_brdf_dataset(0, None, cache_path="absent.npy"),
             "train_material": lambda: stages.train_material(None, tcfg.ModelConfig(), tcfg.TrainConfig()),
-            "cli.train": lambda: train_cli.main(["--material", "ggx:0.5", "--out", "absent"])}[entry]
+            "cli.train": lambda: train_cli.main(["--material", "ggx:0.5", "--out", "absent"]),
+            "import_reference_material": lambda: import_reference_material("absent", "m", "disk"),
+            "cli.import_reference": lambda: import_reference.main(["--checkpoints-root", "absent", "--material", "m",
+                                                                   "--domain", "disk", "--out", "absent.npz"])}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
 

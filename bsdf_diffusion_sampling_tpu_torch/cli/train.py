@@ -18,6 +18,14 @@ spherical domains train a 4 x 32 student and a 6 x 64 teacher.
 Materials: an RGL .bsdf basename (measured, in `--bsdf-dir`),
 "ggx:<roughness>" (analytic) or "table:<idx>" (the material table). Integer
 arguments accept expressions such as "2**16" or "4900000*2".
+
+Data-parallel over several processes under torchrun (one card a process;
+`TrainConfig.mesh_axes` names the mesh, -1 the whole group): rank 0 makes
+the MCMC dataset and its cache, every rank loads it after a barrier, every
+stage runs data-parallel, and only rank 0 logs and writes files:
+
+  torchrun --nproc-per-node 4 -m bsdf_diffusion_sampling_tpu_torch.cli.train \
+      --domain disk --material chm_mint_rgb --bsdf-dir bsdfs --out checkpoints/chm_mint_disk
 """
 
 from __future__ import annotations
@@ -110,47 +118,80 @@ def make_target_pdf(args, device):
 def main(argv=None):
     """Train and write `<out>/final.npz`. Returns (params, stats): the
     trained trees, and each stage's iteration times and peak memory plus
-    the MCMC's seconds."""
+    the MCMC's seconds. Under torchrun (or in a process whose default group
+    is already formed) every stage runs data-parallel over the group."""
     args = build_parser().parse_args(argv)
-    import torch
+    import torch.distributed as dist
 
-    from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, TrainConfig
+    from bsdf_diffusion_sampling_tpu_torch.core.config import TrainConfig
     from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
-    from bsdf_diffusion_sampling_tpu_torch.data.datasets import generate_brdf_dataset
-    from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import save_pytree
-    from bsdf_diffusion_sampling_tpu_torch.train.stages import train_material
+    from bsdf_diffusion_sampling_tpu_torch.parallel import init_distributed, make_mesh
 
     device = resolve_device(args.device)
-    os.makedirs(args.out, exist_ok=True)
-    pdf_fn = make_target_pdf(args, device)
-    cache = os.path.join(args.out, f"mcmc_{args.domain}_{args.material.replace(':', '_')}.npy")
-    print(f"[data] MCMC dataset ({args.mcmc_bands} bands x {args.mcmc_steps} steps x {args.mcmc_walkers} walkers) "
-          f"-> {cache}", flush=True)
-    t0 = time.perf_counter()
-    dataset = generate_brdf_dataset(args.seed, pdf_fn, domain=args.domain, nsteps=args.mcmc_steps,
-                                    nwalkers=args.mcmc_walkers, piecewise=args.mcmc_bands, burn_in=args.mcmc_burnin,
-                                    cache_path=cache, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stats = {"mcmc": {"seconds": time.perf_counter() - t0}}
-    print(f"[data] dataset {tuple(dataset.shape)} ({stats['mcmc']['seconds']:.2f} s)", flush=True)
-
-    if args.domain == "disk":
-        model_cfg, teacher_cfg = ModelConfig(domain="disk"), None  # disk self-distils
-    else:
-        model_cfg = ModelConfig(domain=args.domain, velocity_hidden=32, velocity_layers=4)
-        teacher_cfg = ModelConfig(domain=args.domain, velocity_hidden=64, velocity_layers=6)
     train_cfg = TrainConfig(
         batch_pretrain=args.batch_pretrain, iters_pretrain=args.iters_pretrain,
         batch_diffusion=args.batch_diffusion, iters_diffusion=args.iters_diffusion,
         iters_rectify=args.iters_rectify, timestep_rectify=args.timestep_rectify,
         num_samples_rectify=args.num_samples_rectify, batch_wi_rectify=args.batch_wi_rectify,
         save_every=args.save_every, log_every=args.log_every, seed=args.seed, checkpoint_dir=args.out)
-    params = train_material(dataset, model_cfg, train_cfg, teacher_cfg=teacher_cfg,
-                            log_fn=lambda s: print(s, flush=True), device=device, stats=stats)
-    # step records the final rectify iteration, as the JAX CLI's does
-    save_pytree(os.path.join(args.out, "final.npz"), params, step=train_cfg.iters_rectify)
-    print(f"[done] wrote {args.out}/final.npz", flush=True)
+    formed_here = not dist.is_initialized()
+    init_distributed(device_type=device.type)
+    mesh = None
+    if dist.is_initialized():
+        (axis, n_dev), = train_cfg.mesh_axes
+        mesh = make_mesh(n_dev, axis_name=axis, device_type=device.type)
+        device = mesh.device
+    try:
+        return _train(args, train_cfg, device, mesh)
+    finally:
+        if formed_here and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, train_cfg, device, mesh):
+    import torch
+
+    from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig
+    from bsdf_diffusion_sampling_tpu_torch.data.datasets import generate_brdf_dataset
+    from bsdf_diffusion_sampling_tpu_torch.parallel.mesh import barrier
+    from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import save_pytree
+    from bsdf_diffusion_sampling_tpu_torch.train.stages import train_material
+
+    lead = mesh is None or mesh.rank == 0
+    say = (lambda s: print(s, flush=True)) if lead else (lambda s: None)
+    os.makedirs(args.out, exist_ok=True)
+    pdf_fn = make_target_pdf(args, device)
+    cache = os.path.join(args.out, f"mcmc_{args.domain}_{args.material.replace(':', '_')}.npy")
+    say(f"[data] MCMC dataset ({args.mcmc_bands} bands x {args.mcmc_steps} steps x {args.mcmc_walkers} walkers) "
+        f"-> {cache}")
+    t0 = time.perf_counter()
+
+    def dataset_or_cache():
+        return generate_brdf_dataset(args.seed, pdf_fn, domain=args.domain, nsteps=args.mcmc_steps,
+                                     nwalkers=args.mcmc_walkers, piecewise=args.mcmc_bands,
+                                     burn_in=args.mcmc_burnin, cache_path=cache, device=device)
+
+    # rank 0 makes the dataset and writes the cache; the others read it
+    dataset = dataset_or_cache() if lead else None
+    if mesh is not None:
+        barrier(mesh)
+        if not lead:
+            dataset = dataset_or_cache()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stats = {"mcmc": {"seconds": time.perf_counter() - t0}}
+    say(f"[data] dataset {tuple(dataset.shape)} ({stats['mcmc']['seconds']:.2f} s)")
+
+    if args.domain == "disk":
+        model_cfg, teacher_cfg = ModelConfig(domain="disk"), None  # disk self-distils
+    else:
+        model_cfg = ModelConfig(domain=args.domain, velocity_hidden=32, velocity_layers=4)
+        teacher_cfg = ModelConfig(domain=args.domain, velocity_hidden=64, velocity_layers=6)
+    params = train_material(dataset, model_cfg, train_cfg, teacher_cfg=teacher_cfg, log_fn=say, device=device,
+                            stats=stats, mesh=mesh)
+    if lead:  # step records the final rectify iteration, as the JAX CLI's does
+        save_pytree(os.path.join(args.out, "final.npz"), params, step=train_cfg.iters_rectify)
+    say(f"[done] wrote {args.out}/final.npz")
     return params, stats
 
 

@@ -85,7 +85,8 @@ class ModelConfig:
 class TrainConfig:
     """Stage schedule, the reference CLI tables' defaults
     (`disk_domain_sampling.py:144-153`, `spherical_domain_sampling.py:211-220`).
-    `mesh_axes` is kept as data: the port trains on one device."""
+    `mesh_axes` names the data mesh `cli/train.py` trains over: -1 spans the
+    whole process group (one process without one)."""
 
     batch_pretrain: int = 9_800_000
     iters_pretrain: int = 10_000

@@ -11,6 +11,7 @@ JAX's: tests that compare the two packages feed both the same numpy draws.
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
 
 import torch
 
@@ -42,3 +43,13 @@ def draw_seed(generator: torch.Generator) -> torch.Tensor:
     caller on the card never waits for the host."""
     return torch.randint(0, 2**62, (1,), generator=generator,
                          device=generator.device, dtype=torch.int64)
+
+
+@dataclass(frozen=True)
+class RowSeed:
+    """A kernel seed for a shard of a batch: the launch over the shard's
+    rows draws, from `seed`, what one launch over the whole batch draws for
+    global rows row0, row0 + 1, ..."""
+
+    seed: torch.Tensor
+    row0: int

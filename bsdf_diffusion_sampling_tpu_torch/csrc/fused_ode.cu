@@ -46,7 +46,8 @@ using namespace ode;
 constexpr float DET_GUARD = 1e-20f;  // fused_ode.py:925-926
 
 // Two standard normals for sample `idx` under `seed`: Philox4x32-10 keyed by
-// the seed, counter (idx, 0, 0); eps_k = Box-Muller on words (2k, 2k+1).
+// the seed, counter (idx, 0, 0) with idx the sample's global row (the
+// launch's row0 + its row); eps_k = Box-Muller on words (2k, 2k+1).
 __device__ __forceinline__ void normal2(uint64_t seed, uint64_t idx, float (&e)[2]) {
   uint32_t c[4] = {(uint32_t)idx, (uint32_t)(idx >> 32), 0u, 0u};
   philox4x32_10(c, (uint32_t)seed, (uint32_t)(seed >> 32));
@@ -56,13 +57,15 @@ __device__ __forceinline__ void normal2(uint64_t seed, uint64_t idx, float (&e)[
 
 // K1: base heads -> x0 = loc + eps * exp(ls) -> T forward Euler steps with
 // carried tangents -> pdf = N(x0) / det. Rows past n run on a zero condition
-// and draw, and store nothing.
+// and draw, and store nothing. The in-kernel draw of row i is that of global
+// row row0 + i, so a launch over rows [row0, row0 + n) of a larger batch
+// draws what one launch over the whole batch draws for them.
 template <int H, int NL, bool PRNG>
 __global__ void __launch_bounds__(BLOCK)
     sample_pdf_disk_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
                            const long long* __restrict__ seed, const float* __restrict__ w,
                            float* __restrict__ x_out, float* __restrict__ pdf_out,
-                           float* __restrict__ x0_out, int n, int T) {
+                           float* __restrict__ x0_out, int n, int T, long long row0) {
   using C = ode_tc::TcNet<H, NL, 2>;
   extern __shared__ __align__(16) float smem[];
   ode_tc::stage<H, NL, 2>(smem, w);
@@ -81,7 +84,7 @@ __global__ void __launch_bounds__(BLOCK)
 
   float e[2] = {0.0f, 0.0f};
   if (PRNG) {
-    normal2((uint64_t)seed[0], (uint64_t)i, e);
+    normal2((uint64_t)seed[0], (uint64_t)row0 + (uint64_t)i, e);
   } else if (live) {
     e[0] = eps[2 * (size_t)i];
     e[1] = eps[2 * (size_t)i + 1];
@@ -216,18 +219,20 @@ constexpr size_t SMEM = ode_tc::TcNet<32, 3, 2>::SMEM_FLOATS * sizeof(float);  /
 extern "C" {
 
 // Widths other than (hidden 32, 3 hidden layers) are refused with
-// cudaErrorInvalidValue; the Python wrapper checks first.
+// cudaErrorInvalidValue; the Python wrapper checks first. `row0` is the
+// global row of the launch's first sample (the Philox route; 0 for a whole
+// batch).
 int bsdf_fused_sample_pdf_disk(const float* cond, const float* eps, const long long* seed,
-                               const float* w, float* x, float* pdf, float* x0, int n, int T,
-                               int hidden, int layers, void* stream) {
+                               long long row0, const float* w, float* x, float* pdf, float* x0,
+                               int n, int T, int hidden, int layers, void* stream) {
   if (hidden != 32 || layers != 3 || n <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (eps != nullptr) {
     sample_pdf_disk_kernel<32, 3, false>
-        <<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+        <<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T, row0);
   } else {
     sample_pdf_disk_kernel<32, 3, true>
-        <<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+        <<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T, row0);
   }
   return (int)cudaGetLastError();
 }

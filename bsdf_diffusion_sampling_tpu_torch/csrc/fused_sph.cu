@@ -12,8 +12,10 @@
 // state (theta, sin phi, cos phi) with carried tangents; pdf = p0 / det.
 //
 // The draw is given (eps (N, 2) = (eps_g, phi0)) or made in-kernel from a
-// 64-bit seed: Philox4x32-10 keyed by the seed on counters (i, 0, j, 0), j =
-// 0..12, gives 52 words a sample, of which words 0, 1 feed Box-Muller for
+// 64-bit seed: Philox4x32-10 keyed by the seed on counters (g lo, g hi, j,
+// 0), j = 0..12, with g = row0 + i the sample's global row (row0 is 0 for a
+// whole batch, the shard's first row for a shard of one), gives 52 words a
+// sample, of which words 0, 1 feed Box-Muller for
 // eps_g and words 2 + 3r + (0, 1, 2) the three uniforms of Best-Fisher round
 // r, each clipped to [1e-7, 1 - 1e-7] (`ops/fused_ode.py::philox_spherical_draws`
 // reproduces the stream in numpy).
@@ -111,7 +113,7 @@ __global__ void __launch_bounds__(BLOCK)
     sample_pdf_sph_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
                           const long long* __restrict__ seed, const float* __restrict__ w,
                           float* __restrict__ x_out, float* __restrict__ pdf_out, float* __restrict__ x0_out,
-                          int n, int T) {
+                          int n, int T, long long row0) {
   using C = ode_tc::TcNet<H, NL, XE>;
   extern __shared__ __align__(16) float smem[];
   ode_tc::stage<H, NL, XE>(smem, w);
@@ -131,10 +133,11 @@ __global__ void __launch_bounds__(BLOCK)
   float eps_g = 0.0f, phi0 = 0.0f;
   if (PRNG) {
     const uint64_t s = (uint64_t)seed[0];
+    const uint64_t g = (uint64_t)row0 + (uint64_t)i;
     uint32_t wd[4 * BLOCKS];
 #pragma unroll
     for (int b = 0; b < BLOCKS; ++b) {
-      uint32_t ctr[4] = {(uint32_t)i, 0u, (uint32_t)b, 0u};
+      uint32_t ctr[4] = {(uint32_t)g, (uint32_t)(g >> 32), (uint32_t)b, 0u};
       philox4x32_10(ctr, (uint32_t)s, (uint32_t)(s >> 32));
 #pragma unroll
       for (int q = 0; q < 4; ++q) wd[4 * b + q] = ctr[q];
@@ -168,16 +171,17 @@ __global__ void __launch_bounds__(BLOCK)
 extern "C" {
 
 // Widths other than (hidden 32, 4 hidden layers) are refused with
-// cudaErrorInvalidValue; the Python wrapper checks first.
-int bsdf_fused_sample_pdf_spherical(const float* cond, const float* eps, const long long* seed, const float* w,
-                                    float* x, float* pdf, float* x0, int n, int T, int hidden, int layers,
-                                    void* stream) {
+// cudaErrorInvalidValue; the Python wrapper checks first. `row0` is the
+// global row of the launch's first sample (the Philox route).
+int bsdf_fused_sample_pdf_spherical(const float* cond, const float* eps, const long long* seed, long long row0,
+                                    const float* w, float* x, float* pdf, float* x0, int n, int T, int hidden,
+                                    int layers, void* stream) {
   if (hidden != H || layers != NL || n <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (eps != nullptr) {
-    sample_pdf_sph_kernel<false><<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+    sample_pdf_sph_kernel<false><<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T, row0);
   } else {
-    sample_pdf_sph_kernel<true><<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T);
+    sample_pdf_sph_kernel<true><<<blocks_for(n), BLOCK, SMEM, s>>>(cond, eps, seed, w, x, pdf, x0, n, T, row0);
   }
   return (int)cudaGetLastError();
 }

@@ -156,13 +156,20 @@ def _philox4x32_10(c0: np.ndarray, c1: np.ndarray, k0: int, k1: int, c2: int = 0
     return c
 
 
-def philox_normals(seed: int, n: int) -> torch.Tensor:
+def _rows(n: int, row0: int) -> np.ndarray:
+    """The global rows row0 .. row0 + n - 1 as uint64."""
+    return np.arange(n, dtype=np.uint64) + np.uint64(row0)
+
+
+def philox_normals(seed: int, n: int, row0: int = 0) -> torch.Tensor:
     """(n, 2) float32 standard normals exactly as K1 draws them in-kernel:
-    Philox4x32-10 keyed by the 64-bit seed on counter (i, 0) for sample i,
-    then Box-Muller on the top 24 bits of each word pair, u1 clipped to
-    [1e-7, 1 - 1e-7] (the TPU kernel's `fused_ode.py:612-621`)."""
+    Philox4x32-10 keyed by the 64-bit seed on counter (g, 0) for the sample
+    of global row g = row0 + i, then Box-Muller on the top 24 bits of each
+    word pair, u1 clipped to [1e-7, 1 - 1e-7] (the TPU kernel's
+    `fused_ode.py:612-621`). Rows [row0, row0 + n) of the draw of a larger
+    batch are the draw at row0."""
     seed &= (1 << 64) - 1
-    idx = np.arange(n, dtype=np.uint64)
+    idx = _rows(n, row0)
     words = _philox4x32_10(idx & np.uint64(_M32), idx >> np.uint64(32), seed & _M32, seed >> 32)
     eps = [_box_muller(words[2 * k], words[2 * k + 1]) for k in range(2)]
     return torch.from_numpy(np.stack(eps, axis=-1).astype(np.float32))
@@ -186,13 +193,14 @@ SPH_WORDS = 2 + 3 * N_ROUNDS  # a Box-Muller pair, then 16 Best-Fisher rounds of
 SPH_BLOCKS = (SPH_WORDS + 3) // 4  # Philox blocks a sample
 
 
-def philox_spherical_draws(seed: int, n: int):
+def philox_spherical_draws(seed: int, n: int, row0: int = 0):
     """(eps_g (n,), u_von (16, 3, n)) exactly as K4 draws them in-kernel:
-    Philox4x32-10 keyed by the 64-bit seed on counters (i, 0, j, 0), j =
-    0..12, for sample i; words 0, 1 feed Box-Muller for eps_g, words 2 + 3r
-    + role the uniforms of Best-Fisher round r, clipped to [1e-7, 1 - 1e-7]."""
+    Philox4x32-10 keyed by the 64-bit seed on counters (g lo, g hi, j, 0),
+    j = 0..12, for the sample of global row g = row0 + i; words 0, 1
+    feed Box-Muller for eps_g, words 2 + 3r + role the uniforms of
+    Best-Fisher round r, clipped to [1e-7, 1 - 1e-7]."""
     seed &= (1 << 64) - 1
-    idx = np.arange(n, dtype=np.uint64)
+    idx = _rows(n, row0)
     words = []
     for j in range(SPH_BLOCKS):
         words += _philox4x32_10(idx & np.uint64(_M32), idx >> np.uint64(32), seed & _M32, seed >> 32, c2=j)
@@ -243,10 +251,11 @@ def sample_pdf_spherical_plain(w: PackedWeights, cond_enc: torch.Tensor, T: int,
     return x, p0 / det, x0
 
 
-def spherical_x0_from_seed(w: PackedWeights, cond_enc: torch.Tensor, seed: int) -> torch.Tensor:
-    """The x0 = (theta0, phi0) K4 draws in-kernel from `seed`, in plain
-    PyTorch on cond_enc's device (the uniforms from `philox_spherical_draws`)."""
-    eps_g, u = philox_spherical_draws(int(seed), cond_enc.shape[0])
+def spherical_x0_from_seed(w: PackedWeights, cond_enc: torch.Tensor, seed: int, row0: int = 0) -> torch.Tensor:
+    """The x0 = (theta0, phi0) K4 draws in-kernel from `seed` at `row0`, in
+    plain PyTorch on cond_enc's device (the uniforms from
+    `philox_spherical_draws`)."""
+    eps_g, u = philox_spherical_draws(int(seed), cond_enc.shape[0], row0)
     heads = spherical_heads_from_enc(w.base_params, cond_enc[..., :BASE_COLS])
     return spherical_draw(heads, eps_g.to(cond_enc.device), u.to(cond_enc.device))
 
@@ -267,7 +276,7 @@ def transport_plain(domain: str, w: PackedWeights, x: torch.Tensor, cond_enc: to
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("fused_ode.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.bsdf_fused_sample_pdf_disk.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.bsdf_fused_sample_pdf_disk.argtypes = [P, P, P, ctypes.c_longlong, P, P, P, P, I, I, I, I, P]
     lib.bsdf_fused_sample_pdf_disk.restype = I
     lib.bsdf_fused_pdf_disk.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.bsdf_fused_pdf_disk.restype = I
@@ -280,7 +289,7 @@ def _lib() -> ctypes.CDLL:
 def _lib_sph() -> ctypes.CDLL:
     lib = cuda_build.load("fused_sph.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.bsdf_fused_sample_pdf_spherical.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.bsdf_fused_sample_pdf_spherical.argtypes = [P, P, P, ctypes.c_longlong, P, P, P, P, I, I, I, I, P]
     lib.bsdf_fused_sample_pdf_spherical.restype = I
     lib.bsdf_fused_sph_kernel_info.argtypes = [I, P]
     lib.bsdf_fused_sph_kernel_info.restype = I
@@ -354,17 +363,26 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return torch.tensor([s - (1 << 64) if s >= 1 << 63 else s], dtype=torch.int64, device=device)
 
 
+def _check_row0(row0: int) -> int:
+    row0 = int(row0)
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    return row0
+
+
 def fused_sample_pdf_disk(w: PackedWeights, cond_enc: torch.Tensor, T: int, *,
-                          eps: torch.Tensor | None = None, seed=None):
+                          eps: torch.Tensor | None = None, seed=None, row0: int = 0):
     """Disk sample+pdf, (x, pdf, x0) for cond_enc (N, 22). Pass `eps`
     (N, 2) standard normals, or a `seed` (an int or a one-element int64
-    tensor) for the in-kernel Philox draw of `philox_normals`."""
+    tensor) for the in-kernel Philox draw of `philox_normals`; with the seed,
+    row i draws as global row `row0` + i (a shard of a larger batch)."""
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
+    row0 = _check_row0(row0)
     n = cond_enc.shape[0]
     if cond_enc.device.type == "cpu":
         if eps is None:
-            eps = philox_normals(int(seed), n)
+            eps = philox_normals(int(seed), n, row0)
         return sample_pdf_disk_plain(w, cond_enc, T, eps=eps)
     dev = _check_launch(w, cond_enc, T)
     x = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -379,7 +397,7 @@ def fused_sample_pdf_disk(w: PackedWeights, cond_enc: torch.Tensor, T: int, *,
         eps_ptr, seed_t = None, _seed_tensor(seed, dev)
     with torch.cuda.device(dev):
         rc = _lib().bsdf_fused_sample_pdf_disk(
-            cond_enc.data_ptr(), eps_ptr, None if seed_t is None else seed_t.data_ptr(),
+            cond_enc.data_ptr(), eps_ptr, None if seed_t is None else seed_t.data_ptr(), row0,
             w.flat.data_ptr(), x.data_ptr(), pdf.data_ptr(), x0.data_ptr(), n, T,
             w.hidden, w.layers, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "fused_sample_pdf_disk")
@@ -414,17 +432,20 @@ def fused_pdf_disk(w: PackedWeights, x: torch.Tensor, cond_enc: torch.Tensor, T:
 
 
 def fused_sample_pdf_spherical(w: PackedWeights, cond_enc: torch.Tensor, T: int, *,
-                               eps: torch.Tensor | None = None, seed=None):
+                               eps: torch.Tensor | None = None, seed=None, row0: int = 0):
     """Spherical sample+pdf, (x, pdf, x0) for cond_enc (N, 22). Pass `eps`
     (N, 2) = (standard normal for theta, von Mises phi), or a `seed` (an int
     or a one-element int64 tensor) for the in-kernel draw that
-    `philox_spherical_draws` reproduces."""
+    `philox_spherical_draws` reproduces, row i drawing as global row `row0`
+    + i."""
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
+    row0 = _check_row0(row0)
     n = cond_enc.shape[0]
     if cond_enc.device.type == "cpu":
         if eps is None:
-            return sample_pdf_spherical_plain(w, cond_enc, T, x0=spherical_x0_from_seed(w, cond_enc, int(seed)))
+            return sample_pdf_spherical_plain(w, cond_enc, T,
+                                              x0=spherical_x0_from_seed(w, cond_enc, int(seed), row0))
         return sample_pdf_spherical_plain(w, cond_enc, T, eps=eps)
     dev = _check_launch(w, cond_enc, T, K4_NET, "spherical")
     x = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -439,7 +460,7 @@ def fused_sample_pdf_spherical(w: PackedWeights, cond_enc: torch.Tensor, T: int,
         eps_ptr, seed_t = None, _seed_tensor(seed, dev)
     with torch.cuda.device(dev):
         rc = _lib_sph().bsdf_fused_sample_pdf_spherical(
-            cond_enc.data_ptr(), eps_ptr, None if seed_t is None else seed_t.data_ptr(),
+            cond_enc.data_ptr(), eps_ptr, None if seed_t is None else seed_t.data_ptr(), row0,
             w.flat.data_ptr(), x.data_ptr(), pdf.data_ptr(), x0.data_ptr(), n, T,
             w.hidden, w.layers, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "fused_sample_pdf_spherical")

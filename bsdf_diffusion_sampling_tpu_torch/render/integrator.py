@@ -19,8 +19,17 @@ below its surface. A bounce takes its random numbers as explicit tensors
 test can hand it the very draws the JAX package makes from its keys.
 
 The JAX package's jitted bounce / pass programs (`lax.scan` over bounces
-and passes) are Python loops here; its sharded renders (`mesh=`) wait for
-the multi-device slice.
+and passes) are Python loops here.
+
+With a `mesh` (`parallel/mesh.py`), the wavefront is split over the ranks
+in contiguous blocks of rays; the scene and the matballs are replicated.
+Every rank draws the pass's global random numbers from the one generator
+and keeps its block's rows (`shard_randoms`; a kernel seed becomes a
+`RowSeed` at the block's first row, so K1 and K4 draw what the whole
+wavefront's launch would), every bounce stays rank-local (the traversal
+sort is local: per-ray traversal is exact), and the film sum and the
+sample count cross ranks in one `all_reduce` a pass. The traversals'
+`truncated` flag is reduced once a render.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ import numpy as np
 import torch
 
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
-from bsdf_diffusion_sampling_tpu_torch.core.prng import draw_seed, root_generator
+from bsdf_diffusion_sampling_tpu_torch.core.prng import RowSeed, draw_seed, root_generator
+from bsdf_diffusion_sampling_tpu_torch.parallel.mesh import Mesh, all_reduce_
 from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
 from bsdf_diffusion_sampling_tpu_torch.render.envmap import EnvMap, eval_env, pdf_env, sample_env
 from bsdf_diffusion_sampling_tpu_torch.render.lambert import (
@@ -84,6 +94,22 @@ def _uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0) -> t
 def draw_bounce(gen: torch.Generator, n: int, matballs: tuple) -> BounceRandoms:
     return BounceRandoms(_uniform(gen, (n, 2)), _uniform(gen, (n, 2)),
                          tuple(mb.draw(gen, n) for mb in matballs), _uniform(gen, (n,)))
+
+
+def _draw_rows(draw, r0: int, m: int):
+    """Rows [r0, r0 + m) of one draw: (N, ...) tensors on their first axis,
+    the spherical (16, 3, N) von Mises uniforms on their last, a (1,) int64
+    kernel seed as that seed at row r0; tuples draw by draw."""
+    if isinstance(draw, tuple):
+        return tuple(_draw_rows(d, r0, m) for d in draw)
+    if draw.dtype == torch.int64 and tuple(draw.shape) == (1,):
+        return RowSeed(draw, r0)
+    return draw[..., r0:r0 + m] if draw.ndim == 3 else draw[r0:r0 + m]
+
+
+def shard_randoms(rnd: BounceRandoms, r0: int, m: int) -> BounceRandoms:
+    """The rows [r0, r0 + m) of a bounce's random numbers."""
+    return BounceRandoms(*(_draw_rows(f, r0, m) for f in rnd))
 
 
 def _as_tuple(matball) -> tuple:
@@ -304,33 +330,50 @@ def _init_wavefront(cam_vectors, u_cam, *, width, height, spp_chunk):
             torch.zeros(n, device=dev))  # prev_pdf 0 => camera ray: no MIS on env hit
 
 
-def _finish_pass(L, *, width, height, spp_chunk):
+def _finish_pass(L, r0: int, mesh: Mesh | None, *, width, height, spp_chunk):
     """Film accumulation without a scatter: the sample-major ray layout
     makes the per-pixel sum a reshape and a sum over samples; every sample
-    splats with weight 1."""
-    img = L.reshape(spp_chunk, height, width, 3).sum(0)
-    return img, torch.full((height, width), float(spp_chunk), device=L.device)
+    splats with weight 1. `L` holds the pass's rays [r0, r0 + m); the
+    others count zero here, and the film sum and the sample count cross the
+    mesh in one all_reduce (none without a group)."""
+    n, m = width * height * spp_chunk, L.shape[0]
+    L_all = L.new_zeros((n, 3))
+    L_all[r0:r0 + m] = L
+    ones = L.new_zeros((n,))
+    ones[r0:r0 + m] = 1.0
+    img = L_all.reshape(spp_chunk, height, width, 3).sum(0)
+    cnt = ones.reshape(spp_chunk, height, width).sum(0)
+    film = all_reduce_(mesh, torch.cat([img.reshape(-1), cnt.reshape(-1)]))
+    return film[:img.numel()].view(img.shape), film[img.numel():].view(cnt.shape)
 
 
-def render_pass(scene: Scene, matball, gen: torch.Generator, *, spp_chunk: int = 4, max_depth: int = 12):
+def render_pass(scene: Scene, matball, gen: torch.Generator, *, spp_chunk: int = 4, max_depth: int = 12,
+                mesh: Mesh | None = None):
     """One accumulation pass over the whole film: ray generation, max_depth
-    bounces, film. Returns (film_sum, sample_count, truncated)."""
+    bounces, film. Returns (film_sum, sample_count, truncated).
+
+    With a `mesh`, this rank traces its contiguous block of the w * h *
+    spp_chunk rays (which must divide by the mesh size) from the pass's
+    global draws, and every rank returns the whole film; `truncated` is this
+    rank's. Without one, the block is the whole wavefront."""
     matballs = _as_tuple(matball)
     w, h = scene.camera.width, scene.camera.height
     n = w * h * spp_chunk
+    r0, m = (0, n) if mesh is None else mesh.block(n)
     u_cam = _uniform(gen, (n, 2), 1e-7, 1.0)
     state = _init_wavefront(scene.camera.vectors.to(gen.device), u_cam, width=w, height=h, spp_chunk=spp_chunk)
+    state = tuple(x[r0:r0 + m] for x in state)
     truncated = torch.zeros((), dtype=torch.bool, device=gen.device)
     for depth in range(max_depth):
-        state, tr = _bounce_body(scene.accel, scene.envmap, scene.lights, state, draw_bounce(gen, n, matballs),
-                                 depth, matball=matballs)
+        rnd = shard_randoms(draw_bounce(gen, n, matballs), r0, m)
+        state, tr = _bounce_body(scene.accel, scene.envmap, scene.lights, state, rnd, depth, matball=matballs)
         truncated = truncated | tr
-    img, cnt = _finish_pass(state[3], width=w, height=h, spp_chunk=spp_chunk)
+    img, cnt = _finish_pass(state[3], r0, mesh, width=w, height=h, spp_chunk=spp_chunk)
     return img, cnt, truncated
 
 
 def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int = 4, max_depth: int = 12,
-           device="cuda") -> np.ndarray:
+           device="cuda", mesh: Mesh | None = None) -> np.ndarray:
     """Full multi-pass render. Returns the (H, W, 3) numpy image.
 
     Runs on `device` (the card by default; the scene moves there, the
@@ -339,7 +382,9 @@ def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int 
     JAX package's `max_rays_per_pass` row tiles are not needed on the
     card), so the default 512x512 film at spp_chunk 4 is 2^20 rays. The
     traversal's `truncated` flags stay on the device and are checked once
-    at the end."""
+    at the end. With a `mesh` the wavefront is sharded over its ranks
+    (`render_pass`), every rank returns the whole image, and the flags are
+    reduced over the mesh once, before the check."""
     device = resolve_device(device)
     scene = scene.to(device)
     w, h = scene.camera.width, scene.camera.height
@@ -349,10 +394,11 @@ def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int 
     truncated = torch.zeros((), dtype=torch.bool, device=device)
     matballs = _as_tuple(matball)
     for _ in range(max(spp // spp_chunk, 1)):
-        img, cnt, tr = render_pass(scene, matballs, gen, spp_chunk=spp_chunk, max_depth=max_depth)
+        img, cnt, tr = render_pass(scene, matballs, gen, spp_chunk=spp_chunk, max_depth=max_depth, mesh=mesh)
         img_sum += img
         cnt_sum += cnt
         truncated |= tr
+    truncated = all_reduce_(mesh, truncated.to(torch.int32), torch.distributed.ReduceOp.MAX)
     if bool(truncated):
         raise RuntimeError("BVH traversal hit its visit cap: the image may miss geometry")
     return (img_sum / torch.clamp(cnt_sum, min=1.0)[..., None]).cpu().numpy()

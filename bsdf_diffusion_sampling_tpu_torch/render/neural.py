@@ -32,7 +32,7 @@ import torch
 from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import MeasuredBRDF, eval_brdf
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
-from bsdf_diffusion_sampling_tpu_torch.core.prng import draw_seed
+from bsdf_diffusion_sampling_tpu_torch.core.prng import RowSeed, draw_seed
 from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher, disk_to_cart, spher_to_cart
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import get_base, spherical_draw, spherical_heads_from_enc
@@ -111,6 +111,8 @@ def _sample_x_pdf(nb: NeuralBSDF, generator_or_eps, wi_local, cond):
     if isinstance(generator_or_eps, torch.Generator):
         seed = draw_seed(generator_or_eps).to(wi_local.device)
         x, pdf, _ = kernel(nb.packed, cond, nb.T, seed=seed)
+    elif isinstance(generator_or_eps, RowSeed):  # a shard of a larger wavefront
+        x, pdf, _ = kernel(nb.packed, cond, nb.T, seed=generator_or_eps.seed, row0=generator_or_eps.row0)
     elif isinstance(generator_or_eps, tuple):  # spherical (eps_g, von Mises uniforms): phi0 drawn here
         eps_g, u_von = generator_or_eps
         phi0 = spherical_draw(spherical_heads_from_enc(nb.base_params, cond[..., :BASE_COLS]), eps_g, u_von)[..., 1]
@@ -132,7 +134,8 @@ def neural_sample(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(wo_local, pdf_solid_angle). Invalid draws carry pdf 0.
     `generator_or_eps` is a `torch.Generator` (one kernel seed is drawn from
-    it), a (1,) int64 kernel seed, or an (N, 2) tensor: standard normals
+    it), a (1,) int64 kernel seed, a `RowSeed` (the seed of a shard whose
+    first row is global row row0), or an (N, 2) tensor: standard normals
     (disk), or (standard normal for theta, von Mises phi) (spherical). A
     spherical sampler also takes an (eps_g (N,), u_von (16, 3, N)) pair and
     draws phi from the uniforms, as the JAX package draws from a key."""

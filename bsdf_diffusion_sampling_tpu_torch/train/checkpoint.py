@@ -29,6 +29,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.core.tree import tree_leaves, tree_map
+
 _TOKEN = re.compile(r"\[(?:'((?:[^'\\]|\\.)*)'|(\d+))\]|\.([A-Za-z_]\w*)")
 
 
@@ -113,22 +115,6 @@ def load_pytree(path: str):
                 node = node.setdefault(p, {})
             node[last] = data[key]
     return _listify(root), step
-
-
-def tree_map(fn, tree: Any) -> Any:
-    """`fn` on every tensor leaf of a dict/list tree; ints kept as they are."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree) if torch.is_tensor(tree) else tree
-
-
-def tree_leaves(tree: Any) -> list:
-    """The tensor leaves of a dict/list tree, in its order."""
-    out = []
-    tree_map(out.append, tree)
-    return out
 
 
 def save_train_state(path: str, params: Any, optimizer: torch.optim.Adam, step: int) -> None:

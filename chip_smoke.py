@@ -30,7 +30,10 @@ Phases, each of which raises on failure:
      and 2^16 - 37; K1, K2 (exact and reverse, at K1's end points), K4 and
      K3 (the render's spherical 4 x 32 reverse with the det, and the 6 x 64
      teacher at T = 128 and 256) again, to the same tolerances, on weights
-     that move x by O(1), where single-pass TF32 products would show;
+     that move x by O(1), where single-pass TF32 products would show; K1
+     and K4 by seed launched on the rows past row0 = 2^19 and 2^19 - 37
+     at that row0 (a shard of the wavefront) equal to the bit the whole
+     launch's rows;
   5. write the procedural matpreview-size scene (61,648 triangles,
      `.serialized` meshes, XML, EXR envmap, `.bsdf` measured BRDF), and its
      table-material twin (scene_bsdf-style hook, idx 20, albedo (0.4, 0.8,
@@ -75,8 +78,25 @@ Phases, each of which raises on failure:
      `cli/import_reference.py` on each directory and the neural-disk image
      again from its `final.npz`; `--allow-substitute` at 64 x 64; the zoo's
      U-Net step and mixture bases on the card;
-  12. print the `training` line, the `differentiable` line, the card's
-     line, the `kernels` line and the `ok` line.
+  12. multi-device on the one card: (a) a one-rank NCCL group in this
+     process, whose neural-disk render (512 x 512, 16 spp, depth 12) with
+     the mesh is bit-equal to the one without, the film's all_reduce once
+     a pass; (b) two ranks over gloo (NCCL refuses two ranks on one device)
+     started by torch.multiprocessing: gt, neural-disk and
+     neural-spherical on the measured scene at 16 spp and neural-sphere
+     with K3's pdf on the table scene at 4 spp against the one-process
+     renders of the same seed (every pixel within rtol 1e-4 / atol 1e-5,
+     sample counts equal, both ranks' images equal, one all_reduce a pass),
+     and `cli/train.py` data-parallel from phase 10's datasets, disk 5 / 5 /
+     2 and sphere_full 3 / 3 / 1 iterations (the ranks' trees bit-equal,
+     losses finite, one all_reduce a step, K3 once a rectify iteration on
+     each rank), whose stage files one process then resumes; each rank's
+     launches and rows a launch, the collectives, and the ms a pass and an
+     iteration of two ranks against one process (two processes that share
+     one card: not a scaling figure);
+  13. print the `training` line, the `differentiable` line, the
+     `multidevice` line, the card's line, the `kernels` line (each kernel's
+     row-offset status beside its numbers) and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -98,6 +118,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
 from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
@@ -113,6 +134,7 @@ from bsdf_diffusion_sampling_tpu_torch.models.zoo import gmm_disk_base, mixture_
 from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact, transport, transport_with_det
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
+from bsdf_diffusion_sampling_tpu_torch.parallel import init_distributed, make_mesh
 from bsdf_diffusion_sampling_tpu_torch.cli import import_reference as import_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
@@ -126,6 +148,7 @@ from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
     draw_bounce,
     neural_matball_sphere,
     render,
+    render_pass,
 )
 from bsdf_diffusion_sampling_tpu_torch.render.lambert import cosine_sample, make_frame, to_world
 from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, neural_pdf, neural_sample
@@ -150,6 +173,11 @@ RENDER_DEPTH = 12
 # neural-sphere bounce runs the plain exact spherical pdf twice on the
 # whole wavefront, which keeps the whole run inside a few minutes.
 TABLE_SPP = 16
+# The row offsets at which K1 and K4 by seed are launched on the tail of a
+# wavefront and held to the whole launch's rows (phase 4): the first row
+# of the second of two shards of 2^20, and one that is not a multiple of a
+# warp or a tile.
+ROW0S = (1 << 19, (1 << 19) - 37)
 N_LONG = 1 << 16  # rectify's long transports (T = 128, 256) are checked and timed at 2^16 rows
 
 # Kernel vs plain, both fp32 on the card. The two sum in other orders, so
@@ -311,6 +339,8 @@ def check_kernels(nb, device, n: int) -> dict:
     k1p = {"pdf_rel_at_own_x0": max_rel(pdfs, pdf_at_x0), "x0_abs_vs_plain_philox": max_abs(x0s, x0_ph),
            "z_mean": z.mean(0).tolist(), "z_std": z.std(0).tolist()}
     log(f"  K1 philox vs plain: {k1p}")
+    k1o = row_offset_check("K1", lambda c, **kw: fo.fused_sample_pdf_disk(w, c, T, seed=seed, **kw), cond,
+                           (xs, pdfs, x0s))
 
     k2 = {"x0_abs": 0.0, "pdf_rel": 0.0}
     for it in sorted({0, 1, nb.pdf_newton_iters}):  # the sampler's newton_iters is the last
@@ -345,12 +375,29 @@ def check_kernels(nb, device, n: int) -> dict:
     out["fused_sample_pdf_disk"] = {
         "max_abs_err": max(k1["x_abs"], k1["x0_abs"], k1p["x0_abs_vs_plain_philox"]),
         "max_rel_err": max(k1["pdf_rel"], k1p["pdf_rel_at_own_x0"]),
+        "row_offset_max_abs": k1o,
     }
     out["fused_pdf_disk"] = {
         "max_abs_err": max(k2["x0_abs"], k2r["x0_abs"]),
         "max_rel_err": max(k2["pdf_rel"], k2r["pdf_rel"]),
     }
     return out
+
+
+def row_offset_check(label: str, kernel, cond: torch.Tensor, whole: tuple) -> float:
+    """A seeded kernel launched on rows [row0, n) at `row0` (the launch of
+    a shard of the wavefront) must give what the one launch over all n rows
+    gave for them, to the bit: each row's draw, transport and pdf depend on
+    its global row alone."""
+    worst = 0.0
+    for row0 in ROW0S:
+        part = kernel(cond[row0:], row0=row0)
+        diff = max(max_abs(a, b[row0:]) for a, b in zip(part, whole))
+        equal = all(torch.equal(a, b[row0:]) for a, b in zip(part, whole))
+        log(f"  {label} seeded at row0 = {row0} vs the whole launch's rows: equal {equal}, max abs {diff}")
+        require(equal, f"{label} at row0 = {row0} differs from the whole launch's rows by {diff}")
+        worst = max(worst, diff)
+    return worst
 
 
 def wrap_abs(d: torch.Tensor) -> torch.Tensor:
@@ -393,6 +440,8 @@ def check_spherical(nb, device, n: int) -> dict:
            "theta0_abs": max_abs(x0s[:, 0], x0r[:, 0]),
            "phi0_in_range": bool(((x0s[:, 1] >= -math.pi) & (x0s[:, 1] < math.pi)).all())}
     log(f"  K4 philox vs plain: {k4p}")
+    k4o = row_offset_check("K4", lambda c, **kw: fo.fused_sample_pdf_spherical(w, c, T, seed=seed, **kw), cond,
+                           (xs, pdfs, x0s))
     for name, t in (("x", x), ("pdf", pdf), ("x_seed", xs), ("pdf_seed", pdfs)):
         require(bool(torch.isfinite(t).all()), f"non-finite K4 output {name}")
     require(max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]) <= TOL_SPH_X_ABS, "K4 x/x0 differs from plain")
@@ -400,7 +449,7 @@ def check_spherical(nb, device, n: int) -> dict:
     require(k4p["draw_match"] >= MIN_DRAW_MATCH, "K4's in-kernel draw differs from its reproduction")
     require(k4p["phi0_in_range"], "K4 phi0 outside [-pi, pi)")
     return {"max_abs_err": max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]),
-            "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"])}
+            "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"]), "row_offset_max_abs": k4o}
 
 
 def transport_fp64(domain: str, w, x: torch.Tensor, cond: torch.Tensor, T: int) -> torch.Tensor:
@@ -1607,6 +1656,282 @@ def differentiable_phase(d: str, scenes: dict, trees: dict, device, name: str) -
             "zoo": zoo_phase(device)}
 
 
+# ---------------------------------------------------------- multi-device ----
+
+# Phase 12: the sharded render and data-parallel training on the one card.
+# NCCL refuses two ranks on one device, so (a) forms a one-rank NCCL group
+# in this process, and (b) runs two ranks over gloo (whose all_reduce,
+# broadcast and barrier take CUDA tensors), started by torch.multiprocessing
+# with a file init; both ranks land on cuda:0. The two share the card: their
+# ms are not a scaling figure.
+MD_WORLD = 2
+MD_SEED = SEED + 30
+MD_TIMEOUT = 600  # s for the two ranks together
+# (scene, mode, spp): the renders of phase 8's scenes and weights, 512 x 512, depth 12
+MD_RENDERS = (("measured", "gt", TABLE_SPP), ("measured", "neural-disk", TABLE_SPP),
+              ("measured", "neural-spherical", TABLE_SPP), ("table", "neural-sphere K3", RENDER_CHUNK))
+# cli/train.py at the CLI's widths and batches from phase 10's MCMC caches:
+# (material, cache directory of phase 10, iterations pretrain / diffusion / rectify)
+MD_TRAIN = {"disk": ("synthetic_rgb", "train_disk", (5, 5, 2)),
+            "sphere_full": ("table:20", "train_sphere", (3, 3, 1))}
+# the sharded film against the one-process film (JAX tests/test_render_sharded.py:33-34)
+MD_RTOL, MD_ATOL = 1e-4, 1e-5
+
+
+class CollectiveCount:
+    """Counts every torch.distributed all_reduce, broadcast and barrier
+    while it is entered."""
+
+    NAMES = ("all_reduce", "broadcast", "barrier")
+
+    def __enter__(self):
+        self.n, self.orig = dict.fromkeys(self.NAMES, 0), {k: getattr(dist, k) for k in self.NAMES}
+        for k, fn in self.orig.items():
+            def wrapped(*a, _k=k, _fn=fn, **kw):
+                self.n[_k] += 1
+                return _fn(*a, **kw)
+            setattr(dist, k, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(dist, k, fn)
+
+
+def md_matball(d: str, scene: str, mode: str, weights: dict, device):
+    """The matball of a phase-12 render, built as `cli/render.py` builds it
+    (the neural-sphere with K3's reverse-Euler pdf as phase 8 builds it)."""
+    if mode == "neural-sphere K3":
+        tree = load_pytree(weights["neural-sphere"])[0]
+        nb = make_neural_bsdf("sphere_full", SPH_CFG, tree["rectified"], tree["base"],
+                              sampler_cfg=SamplerConfig(pdf_exact=False), device=device)
+        return neural_matball_sphere(nb, BSDF_MATERIALS[TABLE[0]], TABLE[1])
+    ball = ({"filename": "synthetic_rgb", "idx": -1} if scene == "measured"
+            else {"filename": "", "idx": TABLE[0], "albedo": TABLE[1]})
+    args = render_cli.build_parser().parse_args(["--scene", "", "--bsdf-dir", d, "--mode", mode, "--checkpoint",
+                                                 weights.get(mode, "")])
+    return render_cli.build_matball(ball, args, device)
+
+
+def md_render(scene, mb, spp: int, device, mesh=None) -> dict:
+    """A warm-up, then the timed render with the launches and collectives
+    counted around it, then one pass at depth 1 for the film's sample count."""
+    render(scene, mb, seed=MD_SEED, spp=RENDER_CHUNK, spp_chunk=RENDER_CHUNK, max_depth=2, device=device, mesh=mesh)
+
+    def timed():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scene, mb, seed=MD_SEED, spp=spp, spp_chunk=RENDER_CHUNK, max_depth=RENDER_DEPTH,
+                     device=device, mesh=mesh)
+        return img, time.perf_counter() - t0
+
+    with CollectiveCount() as cc:
+        (img, dt), counts = counted(timed)
+    _, cnt, _ = render_pass(scene, (mb,), root_generator(MD_SEED, device), spp_chunk=RENDER_CHUNK, max_depth=1,
+                            mesh=mesh)
+    passes = spp // RENDER_CHUNK
+    return {"img": img, "seconds": dt, "ms_a_pass": 1e3 * dt / passes, "passes": passes, "launches": counts,
+            "collectives": cc.n, "cnt": cnt.cpu().numpy()}
+
+
+def md_train_argv(d: str, domain: str) -> list:
+    material, _, (pre, dif, rect) = MD_TRAIN[domain]
+    argv = train_argv(d, os.path.join(d, f"md_{domain}"), domain, material, rect)
+    for flag, v in (("--iters-pretrain", pre), ("--iters-diffusion", dif)):
+        argv[argv.index(flag) + 1] = str(v)
+    return argv
+
+
+# what a rank takes from the parent's module (the sizes, which a rehearsal on
+# the CPU cuts in the parent before it starts the ranks)
+MD_PLAN = ("RENDER_RES", "RENDER_CHUNK", "RENDER_DEPTH", "TABLE_SPP", "MD_SEED", "MD_RENDERS", "MD_TRAIN")
+
+
+def md_rank(rank: int, d: str, scenes: dict, weights: dict, plan: dict) -> None:
+    """One of phase 12's two gloo ranks: the renders and the training runs
+    with this rank's launches and collectives; writes md_rank<r>.json and
+    its images and trained parameters under d. `plan`: the parent's
+    MD_PLAN values, its device type and each domain's cli/train.py argv."""
+    globals().update(plan["sizes"])
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 2 sets them in the parent
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", init_method=f"file://{os.path.join(d, 'md_gloo')}", world_size=MD_WORLD,
+                     rank=rank, device_type=plan["device_type"])
+    mesh = make_mesh(device_type=plan["device_type"])
+    device = mesh.device
+    loaded = {k: load_scene(p, device=device, width=RENDER_RES, height=RENDER_RES) for k, p in scenes.items()}
+    out = {"rank": rank, "device": str(device), "renders": {}, "train": {}}
+    for scene, mode, spp in MD_RENDERS:
+        r = md_render(loaded[scene], md_matball(d, scene, mode, weights, device), spp, device, mesh)
+        np.save(os.path.join(d, f"md_rank{rank}_{scene}_{mode}.npy"), r.pop("img"))
+        np.save(os.path.join(d, f"md_rank{rank}_{scene}_{mode}_cnt.npy"), r.pop("cnt"))
+        out["renders"][f"{scene} {mode}"] = r
+    for domain in MD_TRAIN:
+        buf = io.StringIO()
+        with CollectiveCount() as cc, contextlib.redirect_stdout(Tee(sys.stdout, buf) if rank == 0 else buf):
+            (params, stats), counts = counted(lambda: train_cli.main(plan["train_argv"][domain]))
+        save_pytree(os.path.join(d, f"md_rank{rank}_{domain}.npz"), params)
+        out["train"][domain] = {"collectives": cc.n, "launches": counts, "log": buf.getvalue(),
+                                "ms_median": {k: v["ms_median"] for k, v in stats.items() if k != "mcmc"},
+                                "iters": {k: v["iters"] for k, v in stats.items() if k != "mcmc"}}
+    with open(os.path.join(d, f"md_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def md_spawn(d: str, scenes: dict, weights: dict, device_type: str) -> list:
+    """Both ranks, joined within MD_TIMEOUT; a rank that fails or hangs
+    fails the phase (the others are ended)."""
+    plan = {"sizes": {k: globals()[k] for k in MD_PLAN}, "device_type": device_type,
+            "train_argv": {domain: md_train_argv(d, domain) for domain in MD_TRAIN}}
+    ctx = torch.multiprocessing.spawn(md_rank, args=(d, scenes, weights, plan), nprocs=MD_WORLD, join=False)
+    deadline = time.time() + MD_TIMEOUT
+    try:
+        while not ctx.join(timeout=2):
+            require(time.time() < deadline, f"phase 12: the ranks did not finish within {MD_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [json.load(open(os.path.join(d, f"md_rank{r}.json"))) for r in range(MD_WORLD)]
+
+
+def md_nccl_one_rank(d: str, scene, weights: dict, device) -> dict:
+    """(a) A one-rank NCCL group in this process (gloo in a rehearsal on
+    the CPU): the neural-disk render with the mesh is bit-equal to the
+    render without, and the film's all_reduce runs once a pass (and the
+    truncated flag's once a render)."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    init_distributed(backend=backend, init_method=f"file://{os.path.join(d, 'md_nccl')}", world_size=1, rank=0,
+                     device_type=device.type)
+    try:
+        mesh = make_mesh(device_type=device.type)
+        mb = md_matball(d, "measured", "neural-disk", weights, device)
+        alone = md_render(scene, mb, TABLE_SPP, device)
+        meshed = md_render(scene, mb, TABLE_SPP, device, mesh)
+    finally:
+        dist.destroy_process_group()
+    out = {"backend": backend, "world_size": 1, "spp": TABLE_SPP, "bit_equal": bool(np.array_equal(alone["img"],
+                                                                                                  meshed["img"])),
+           "max_abs": float(np.abs(alone["img"] - meshed["img"]).max()), "collectives": meshed["collectives"],
+           "ms_a_pass": {"mesh": meshed["ms_a_pass"], "no_mesh": alone["ms_a_pass"]},
+           "launches": meshed["launches"]}
+    log(f"  (a) NCCL, one rank: {out}")
+    require(out["bit_equal"], f"NCCL world size 1: the render differs from mesh=None by {out['max_abs']}")
+    require(np.array_equal(alone["cnt"], meshed["cnt"]), "NCCL world size 1: the sample counts differ")
+    require(meshed["collectives"] == {"all_reduce": meshed["passes"] + 1, "broadcast": 0, "barrier": 0},
+            f"NCCL world size 1: collectives {meshed['collectives']}, expected one all_reduce a pass and one more")
+    require(alone["launches"] == meshed["launches"], "NCCL world size 1: the launches differ")
+    return out
+
+
+def md_compare(label: str, ranks: list, d: str, one: dict) -> dict:
+    """(b) A render of both ranks against the one-process render."""
+    scene, mode = label.split(" ", 1)
+    imgs = [np.load(os.path.join(d, f"md_rank{r}_{scene}_{mode}.npy")) for r in range(MD_WORLD)]
+    cnts = [np.load(os.path.join(d, f"md_rank{r}_{scene}_{mode}_cnt.npy")) for r in range(MD_WORLD)]
+    ref = one["img"]
+    close = np.isclose(imgs[0], ref, rtol=MD_RTOL, atol=MD_ATOL)
+    bad = np.argwhere(~close.all(-1))
+    out = {"ranks_bit_equal": all(np.array_equal(imgs[0], im) for im in imgs[1:]),
+           "counts_equal": all(np.array_equal(c, one["cnt"]) for c in cnts),
+           "pixels_off": int(len(bad)), "first_pixels_off": bad[:5].tolist(),
+           "max_abs": float(np.abs(imgs[0] - ref).max()),
+           "bit_equal_to_one_process": bool(np.array_equal(imgs[0], ref)),
+           "ms_a_pass": {"two_ranks": [r["renders"][label]["ms_a_pass"] for r in ranks],
+                         "one_process": one["ms_a_pass"]},
+           "collectives_a_rank": [r["renders"][label]["collectives"] for r in ranks],
+           # the film's all_reduce a pass (the one more is the truncated flag's, once a render)
+           "film_all_reduce_a_pass": [(r["renders"][label]["collectives"]["all_reduce"] - 1)
+                                      / r["renders"][label]["passes"] for r in ranks],
+           "launches_a_rank": [r["renders"][label]["launches"] for r in ranks],
+           "rows_a_launch": RENDER_RES * RENDER_RES * RENDER_CHUNK // MD_WORLD}
+    log(f"  (b) {label}: {out}")
+    require(out["ranks_bit_equal"], f"{label}: the two ranks' images differ")
+    require(out["counts_equal"], f"{label}: the sample counts differ from one process")
+    require(out["pixels_off"] == 0, f"{label}: {out['pixels_off']} pixels differ from one process beyond rtol "
+            f"{MD_RTOL} / atol {MD_ATOL}, first {out['first_pixels_off']}, max abs {out['max_abs']}")
+    for r in ranks:
+        rr = r["renders"][label]
+        require(rr["collectives"] == {"all_reduce": rr["passes"] + 1, "broadcast": 0, "barrier": 0},
+                f"{label}, rank {r['rank']}: collectives {rr['collectives']}")
+        check_render(f"{label} rank {r['rank']}", imgs[0], rr["seconds"], rr["passes"] * RENDER_CHUNK,
+                     rr["launches"], mode=mode)
+    return out
+
+
+def md_check_training(d: str, ranks: list, training: dict) -> dict:
+    """(b) Both ranks' trained trees bit-equal and finite, every logged loss
+    finite, one all_reduce a step and two broadcasts a stage (rank 0's step,
+    then its state), K3 once a rectify iteration on each rank; then one process resumes their stage
+    files and takes one more rectify step."""
+    out = {}
+    for domain, (material, _, (pre, dif, rect)) in MD_TRAIN.items():
+        flat = [dict(np.load(os.path.join(d, f"md_rank{r}_{domain}.npz"))) for r in range(MD_WORLD)]
+        equal = all(flat[0].keys() == f.keys() and all(np.array_equal(flat[0][k], f[k]) for k in f) for f in flat[1:])
+        finite = all(np.isfinite(v).all() for v in flat[0].values())
+        losses = [float(v) for *_, v in LOSS_LINE.findall(ranks[0]["train"][domain]["log"])]
+        stages_n = 4 if domain != "disk" else 3
+        steps = pre + dif * (stages_n - 2) + rect
+        r_out = {"ranks_bit_equal": equal, "finite": finite, "losses_logged": len(losses),
+                 "collectives_a_rank": [r["train"][domain]["collectives"] for r in ranks],
+                 "all_reduce_a_step": [r["train"][domain]["collectives"]["all_reduce"] / steps for r in ranks],
+                 "k3_launches_a_rank": [r["train"][domain]["launches"]["fused_transport"] for r in ranks],
+                 "ms_an_iteration": {"two_ranks": [r["train"][domain]["ms_median"] for r in ranks],
+                                     "one_process": {k: v["ms_median"] for k, v in training[domain]["stages"].items()}},
+                 "rows_a_rank": {"pretrain": 9_800_000 // MD_WORLD, "diffusion": 4_900_000 // MD_WORLD,
+                                 "rectify": N_RECTIFY // MD_WORLD}}
+        require(equal and finite, f"{domain}: the ranks' trained parameters differ or are not finite")
+        require(losses and all(math.isfinite(v) for v in losses), f"{domain}: a logged loss is not finite")
+        require(not ranks[1]["train"][domain]["log"].strip(), f"{domain}: rank 1 logged")
+        for r in ranks:
+            require(r["train"][domain]["collectives"] == {"all_reduce": steps, "broadcast": 2 * stages_n,
+                                                          "barrier": 1},
+                    f"{domain}, rank {r['rank']}: collectives {r['train'][domain]['collectives']}, expected "
+                    f"{steps} all_reduce, {2 * stages_n} broadcast, 1 barrier")
+            require(r["train"][domain]["launches"]["fused_transport"] == rect,
+                    f"{domain}, rank {r['rank']}: K3 launched {r['train'][domain]['launches']['fused_transport']} "
+                    f"times in {rect} rectify iterations")
+        argv = md_train_argv(d, domain)
+        argv[argv.index("--iters-rectify") + 1] = str(rect + 1)
+        resume = train_run(argv)
+        for stage, at in (("pretrain", pre), ("diffusion-simpler", dif), ("rectify", rect)):
+            require(f"[{stage}/{domain}] resumed at step {at}" in resume["log"],
+                    f"{domain}: one process did not resume {stage} at {at}")
+        require(resume["stats"][f"rectify/{domain}"]["iters"] == 1, f"{domain}: the resume took more than one step")
+        r_out["resumed_in_one_process"] = True
+        log(f"  (b) training {domain}: {r_out}")
+        out[domain] = r_out
+    return out
+
+
+def multidevice_phase(d: str, scenes: dict, weights: dict, training: dict, device) -> dict:
+    """Phase 12: (a) NCCL at world size 1; (b) two gloo ranks on the card
+    against one process: the renders, then training from phase 10's
+    datasets and one process resuming its stage files. (c), K1 and K4 at a
+    row offset, is in phase 4."""
+    loaded = {k: load_scene(p, device=device, width=RENDER_RES, height=RENDER_RES) for k, p in scenes.items()}
+    out = {"nccl_one_rank": md_nccl_one_rank(d, loaded["measured"], weights, device)}
+    one = {f"{scene} {mode}": md_render(loaded[scene], md_matball(d, scene, mode, weights, device), spp, device)
+           for scene, mode, spp in MD_RENDERS}
+    for domain, (_, cache_dir, _) in MD_TRAIN.items():
+        os.makedirs(os.path.join(d, f"md_{domain}"), exist_ok=True)
+        for f in os.listdir(os.path.join(d, cache_dir)):
+            if f.startswith("mcmc_"):
+                shutil.copy(os.path.join(d, cache_dir, f), os.path.join(d, f"md_{domain}", f))
+    del loaded
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = md_spawn(d, scenes, weights, device.type)
+    out["spawn_seconds"] = time.time() - t0
+    out["ranks"] = [{"rank": r["rank"], "device": r["device"]} for r in ranks]
+    out["renders"] = {label: md_compare(label, ranks, d, one[label]) for label in one}
+    out["training"] = md_check_training(d, ranks, training)
+    return out
+
+
 KERNELS = {
     "fused_sample_pdf_disk": ("K1 disk sample+pdf",
                               "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:579 _fused_sample_pdf_kernel "
@@ -1776,7 +2101,7 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     cases = k3_cases(nb, nb_sph["exact"], teacher, device)
     errs["fused_transport"] = check_transport(cases)
     for k, e in check_strong(device).items():
-        errs[k] = {m: max(v, errs[k][m]) for m, v in e.items()}
+        errs[k] = {**errs[k], **{m: max(v, errs[k][m]) for m, v in e.items()}}
     log(f"[4] K1, K2, K4 vs plain at n = {N_MAIN} and {N_RAGGED}, K3 in {len(cases)} instantiations: ok {errs} "
         f"({time.time() - t0:.1f} s)")
 
@@ -1840,6 +2165,13 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     log(f"[11] gradients through K3 at n = {N_MAIN}, the pixel loss at {PIXEL_RES}x{PIXEL_RES}x{PIXEL_S}, the "
         f"reference importer and --weights reference, --allow-substitute, the zoo: ok ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    multidevice = multidevice_phase(d, scenes, weights, training, device)
+    multidevice["seconds"] = time.time() - t0
+    log(f"[12] multi-device: NCCL at world size 1 bit-equal to no mesh; {MD_WORLD} gloo ranks on the card: "
+        f"{len(MD_RENDERS)} renders against one process, disk and sphere_full training, the one-process resume: "
+        f"ok ({multidevice['seconds']:.1f} s)")
+
     # launches: each kernel from the run of the path that runs it, counts
     # set to 0 just before: K1 from the neural-disk render, K4 from the
     # neural-spherical render, K3 from the neural-sphere render with the
@@ -1880,10 +2212,18 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         # the renders with the reference's weights (phase 11)
         rows[-1]["launches_reference_render"] = {label: r["launches"][k] for label, r in
                                                  diff["reference"].items() if "launches" in r}
+        # a launch on a shard of the wavefront (phase 12): K1 and K4 draw at the shard's first global row
+        rows[-1]["row_offset"] = ({"row0": list(ROW0S), "max_abs_vs_whole_launch": errs[k]["row_offset_max_abs"],
+                                   "equal": errs[k]["row_offset_max_abs"] == 0.0}
+                                  if "row_offset_max_abs" in errs[k] else
+                                  "none: the kernel draws no random numbers and its rows are independent")
+        rows[-1]["launches_a_rank_2_ranks"] = {label: [r[k] for r in c["launches_a_rank"]]
+                                               for label, c in multidevice["renders"].items()}
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
-    log(f"[12] total {time.time() - t_start:.1f} s")
+    log(f"[13] total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {"card": smi, **training}}))
     print(json.dumps({"differentiable": {"card": smi, **diff}}))
+    print(json.dumps({"multidevice": {"card": smi, **multidevice}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

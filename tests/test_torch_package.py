@@ -33,6 +33,8 @@ TRAIN_SLICE = ["core.config", "geometry.coords", "geometry.sampling", "models.ml
                "train.losses", "train.checkpoint", "train.stages", "cli.train", "cli.assemble_checkpoint"]
 DIFF_REFERENCE_ZOO_SLICE = ["ops.fused_ode", "ode.flow", "interop.jax_params", "interop.torch_checkpoints",
                             "cli.import_reference", "cli.render", "models.zoo"]
+MULTI_DEVICE_SLICE = ["core.tree", "parallel", "parallel.mesh", "parallel.distributed", "render.integrator",
+                      "train.stages", "cli.train"]
 
 
 def test_import_pulls_in_no_jax():
@@ -50,9 +52,29 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=120, check=True)
     bad, seen = out.stdout.strip().splitlines()
     assert bad == "[]", bad
-    # the render, spherical, training and differentiable/reference/zoo slices' modules are among those imported
+    # the render, spherical, training, differentiable/reference/zoo and multi-device slices' modules are among
+    # those imported
     assert {f"bsdf_diffusion_sampling_tpu_torch.{m}"
-            for m in RENDER_SLICE + SPHERICAL_SLICE + TRAIN_SLICE + DIFF_REFERENCE_ZOO_SLICE} <= set(seen.split())
+            for m in RENDER_SLICE + SPHERICAL_SLICE + TRAIN_SLICE + DIFF_REFERENCE_ZOO_SLICE + MULTI_DEVICE_SLICE
+            } <= set(seen.split())
+
+
+def test_parallel_exports_the_jax_package_names():
+    """`parallel/__init__.py` exports what the JAX package's does."""
+    import ast
+
+    import bsdf_diffusion_sampling_tpu.parallel as jpar
+    import bsdf_diffusion_sampling_tpu_torch.parallel as tpar
+
+    def exported(mod):
+        tree = ast.parse(Path(mod.__file__).read_text())
+        return {a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom) for a in node.names}
+
+    names = exported(jpar)
+    assert names == exported(tpar) == {"DATA_AXIS", "batch_sharding", "make_mesh", "pad_to_multiple", "replicate",
+                                       "replicated_sharding", "shard_batch", "global_batch_slice", "host_fold",
+                                       "init_distributed"}
+    assert all(callable(getattr(tpar, n)) for n in names - {"DATA_AXIS"}) and tpar.DATA_AXIS == jpar.DATA_AXIS
 
 
 def test_no_source_names_the_jax_package():

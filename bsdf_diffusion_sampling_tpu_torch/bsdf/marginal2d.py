@@ -8,6 +8,10 @@ slice (the theta_i incidence angles of an RGL file). Sampling draws the y
 conditional row density; `invert` is the exact inverse map. CDFs are
 linear in the density, so slices are blended with one weight.
 
+Anisotropic files condition on (phi_i, theta_i): their slices are flattened
+phi-major (slice pf * Pt + tf) and blended bilinearly over the 4 bracketing
+(phi, theta) slices, in the JAX package's order (`_slice_weights`).
+
 Cell lookups are binary searches over gathered scalars, O(N log W). The
 JAX package's `_fast` / `_wide1` variants and its row-pair packing compute
 the same functions with TPU-friendly row gathers and are not carried over.
@@ -16,7 +20,7 @@ the same functions with TPU-friendly row gathers and are not carried over.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,20 +32,23 @@ class Warp2D(NamedTuple):
     density:  (P, H, W) vertex densities, trapezoid-integrating to 1
     cond_cdf: (P, H, W) cumulative trapezoid along x (cond_cdf[..., 0] = 0)
     marg_cdf: (P, H)    cumulative trapezoid along y of row integrals
-    params:   (P,)      conditioning values (theta_i), increasing
+    params:   (Pt,)     conditioning values (theta_i), increasing
+    params_phi: (Pp,)   the phi_i grid of an anisotropic warp (P == Pp * Pt,
+                        slice p = pf * Pt + tf), None for an isotropic one
     """
 
     density: torch.Tensor
     cond_cdf: torch.Tensor
     marg_cdf: torch.Tensor
     params: torch.Tensor
+    params_phi: Optional[torch.Tensor] = None
 
     @property
     def res(self) -> Tuple[int, int]:
         return self.density.shape[-2], self.density.shape[-1]
 
     def to(self, device) -> "Warp2D":
-        return Warp2D(*(t.to(device) for t in self))
+        return Warp2D(*(None if t is None else t.to(device) for t in self))
 
 
 def build_warp2d(grids: np.ndarray, params: np.ndarray) -> Warp2D:
@@ -64,6 +71,15 @@ def build_warp2d(grids: np.ndarray, params: np.ndarray) -> Warp2D:
                   marg_cdf=f32(marg / total), params=f32(params))
 
 
+def build_warp2d_aniso(grids: np.ndarray, theta: np.ndarray, phi: np.ndarray) -> Warp2D:
+    """grids: (Pp, Pt, H, W) vertex values conditioned on (phi_i, theta_i);
+    slices flattened phi-major."""
+    Pp, Pt, H, W = grids.shape
+    flat = build_warp2d(np.asarray(grids).reshape(Pp * Pt, H, W), np.tile(np.asarray(theta), Pp))
+    return flat._replace(params=torch.from_numpy(np.asarray(theta, np.float32)),
+                         params_phi=torch.from_numpy(np.asarray(phi, np.float32)))
+
+
 def bracket(grid: torch.Tensor, v: torch.Tensor):
     """Bracketing index + weight on a 1-D increasing grid, end-clamped."""
     n = grid.shape[0]
@@ -74,9 +90,24 @@ def bracket(grid: torch.Tensor, v: torch.Tensor):
     return idx, w
 
 
-def _slices(warp: Warp2D, theta):
-    p0, wp = bracket(warp.params, theta)
-    return p0, torch.clamp(p0 + 1, max=warp.params.shape[0] - 1), wp
+def slice_weights(theta_grid: torch.Tensor, phi_grid: Optional[torch.Tensor], theta, phi=None):
+    """[(flat slice index, weight)]: 2 entries on a theta-only grid, 4 on a
+    (phi_i, theta_i) one, for each theta slice phi low then phi high;
+    weights sum to 1. phi None on an anisotropic grid means phi 0."""
+    Pt = theta_grid.shape[0]
+    ti, tw = bracket(theta_grid, theta)
+    t_slices = [(ti, 1.0 - tw), (torch.clamp(ti + 1, max=Pt - 1), tw)]
+    if phi_grid is None or phi_grid.shape[0] <= 1:
+        return t_slices
+    Pp = phi_grid.shape[0]
+    if phi is None:
+        phi = torch.zeros_like(theta)
+    pi_, pw = bracket(phi_grid, phi)
+    out = []
+    for t_idx, t_w in t_slices:
+        out.append((pi_ * Pt + t_idx, (1.0 - pw) * t_w))
+        out.append((torch.clamp(pi_ + 1, max=Pp - 1) * Pt + t_idx, pw * t_w))
+    return out
 
 
 def _bsearch(cdf_at, n: int, target):
@@ -115,26 +146,31 @@ def _at(table, p, k, j=None):
     return table[p, k, torch.clamp(j, max=table.shape[2] - 1)]
 
 
-def _marg(warp, p0, p1, wp, k):
-    return (1 - wp) * _at(warp.marg_cdf, p0, k) + wp * _at(warp.marg_cdf, p1, k)
+def _blend(table, slices, k, j=None):
+    """sum over the slice list of weight * table[slice, k(, j)], in the
+    list's order."""
+    out = None
+    for p, w in slices:
+        v = w * _at(table, p, k, j)
+        out = v if out is None else out + v
+    return out
 
 
-def _cond(warp, p0, p1, wp, k0, k1, wk, j):
-    v0 = (1 - wp) * _at(warp.cond_cdf, p0, k0, j) + wp * _at(warp.cond_cdf, p1, k0, j)
-    v1 = (1 - wp) * _at(warp.cond_cdf, p0, k1, j) + wp * _at(warp.cond_cdf, p1, k1, j)
-    return (1 - wk) * v0 + wk * v1
+def _marg(warp, slices, k):
+    return _blend(warp.marg_cdf, slices, k)
 
 
-def _dens(warp, p0, p1, wp, k0, k1, wk, j):
-    v0 = (1 - wp) * _at(warp.density, p0, k0, j) + wp * _at(warp.density, p1, k0, j)
-    v1 = (1 - wp) * _at(warp.density, p0, k1, j) + wp * _at(warp.density, p1, k1, j)
-    return (1 - wk) * v0 + wk * v1
+def _cond(warp, slices, k0, k1, wk, j):
+    return (1 - wk) * _blend(warp.cond_cdf, slices, k0, j) + wk * _blend(warp.cond_cdf, slices, k1, j)
 
 
-def _row_density(warp, p0, p1, wp, k):
+def _dens(warp, slices, k0, k1, wk, j):
+    return (1 - wk) * _blend(warp.density, slices, k0, j) + wk * _blend(warp.density, slices, k1, j)
+
+
+def _row_density(warp, slices, k):
     """Marginal (row-integral) density at vertex row k."""
-    last = torch.full_like(k, warp.cond_cdf.shape[2] - 1)
-    return (1 - wp) * _at(warp.cond_cdf, p0, k, last) + wp * _at(warp.cond_cdf, p1, k, last)
+    return _blend(warp.cond_cdf, slices, k, torch.full_like(k, warp.cond_cdf.shape[2] - 1))
 
 
 def _cell(x, n: int):
@@ -144,52 +180,52 @@ def _cell(x, n: int):
     return i, xf - i.to(xf.dtype)
 
 
-def warp_sample(warp: Warp2D, u: torch.Tensor, theta: torch.Tensor):
-    """u: (..., 2) uniforms; theta: (...,) parameter. Returns ((..., 2) pos,
-    (...,) density at pos)."""
+def warp_sample(warp: Warp2D, u: torch.Tensor, theta: torch.Tensor, phi=None):
+    """u: (..., 2) uniforms; theta: (...,) parameter (and phi for an
+    anisotropic warp). Returns ((..., 2) pos, (...,) density at pos)."""
     H, W = warp.res
     dx, dy = 1.0 / (W - 1), 1.0 / (H - 1)
     u1, u2 = u[..., 0], u[..., 1]
-    p0, p1, wp = _slices(warp, theta)
+    sl = slice_weights(warp.params, warp.params_phi, theta, phi)
 
-    k = _bsearch(lambda i: _marg(warp, p0, p1, wp, i), H, u2)
-    m0 = _row_density(warp, p0, p1, wp, k)
-    m1 = _row_density(warp, p0, p1, wp, k + 1)
-    t = _invert_linear_cdf(_marg(warp, p0, p1, wp, k), m0, m1, dy, u2)
+    k = _bsearch(lambda i: _marg(warp, sl, i), H, u2)
+    m0 = _row_density(warp, sl, k)
+    m1 = _row_density(warp, sl, k + 1)
+    t = _invert_linear_cdf(_marg(warp, sl, k), m0, m1, dy, u2)
     y = (k.to(u2.dtype) + t) * dy
 
     target = u1 * ((1 - t) * m0 + t * m1)
-    j = _bsearch(lambda i: _cond(warp, p0, p1, wp, k, k + 1, t, i), W, target)
-    d0 = _dens(warp, p0, p1, wp, k, k + 1, t, j)
-    d1 = _dens(warp, p0, p1, wp, k, k + 1, t, j + 1)
-    s = _invert_linear_cdf(_cond(warp, p0, p1, wp, k, k + 1, t, j), d0, d1, dx, target)
+    j = _bsearch(lambda i: _cond(warp, sl, k, k + 1, t, i), W, target)
+    d0 = _dens(warp, sl, k, k + 1, t, j)
+    d1 = _dens(warp, sl, k, k + 1, t, j + 1)
+    s = _invert_linear_cdf(_cond(warp, sl, k, k + 1, t, j), d0, d1, dx, target)
     x = (j.to(u1.dtype) + s) * dx
     return torch.stack([x, y], dim=-1), (1 - s) * d0 + s * d1
 
 
-def warp_invert(warp: Warp2D, pos: torch.Tensor, theta: torch.Tensor):
+def warp_invert(warp: Warp2D, pos: torch.Tensor, theta: torch.Tensor, phi=None):
     """Exact inverse of warp_sample: (pos, theta) -> ((..., 2) u, density)."""
     H, W = warp.res
     dx, dy = 1.0 / (W - 1), 1.0 / (H - 1)
-    p0, p1, wp = _slices(warp, theta)
+    sl = slice_weights(warp.params, warp.params_phi, theta, phi)
     k, t = _cell(pos[..., 1], H)
-    m0 = _row_density(warp, p0, p1, wp, k)
-    m1 = _row_density(warp, p0, p1, wp, k + 1)
-    u2 = _eval_linear_cdf(_marg(warp, p0, p1, wp, k), m0, m1, dy, t)
+    m0 = _row_density(warp, sl, k)
+    m1 = _row_density(warp, sl, k + 1)
+    u2 = _eval_linear_cdf(_marg(warp, sl, k), m0, m1, dy, t)
     j, s = _cell(pos[..., 0], W)
-    d0 = _dens(warp, p0, p1, wp, k, k + 1, t, j)
-    d1 = _dens(warp, p0, p1, wp, k, k + 1, t, j + 1)
-    cx = _eval_linear_cdf(_cond(warp, p0, p1, wp, k, k + 1, t, j), d0, d1, dx, s)
+    d0 = _dens(warp, sl, k, k + 1, t, j)
+    d1 = _dens(warp, sl, k, k + 1, t, j + 1)
+    cx = _eval_linear_cdf(_cond(warp, sl, k, k + 1, t, j), d0, d1, dx, s)
     u1 = cx / torch.clamp((1 - t) * m0 + t * m1, min=1e-20)
     return torch.stack([u1, u2], dim=-1), (1 - s) * d0 + s * d1
 
 
-def warp_eval(warp: Warp2D, pos: torch.Tensor, theta: torch.Tensor):
+def warp_eval(warp: Warp2D, pos: torch.Tensor, theta: torch.Tensor, phi=None):
     """Normalized density at pos (unit-square measure)."""
     H, W = warp.res
-    p0, p1, wp = _slices(warp, theta)
+    sl = slice_weights(warp.params, warp.params_phi, theta, phi)
     k, t = _cell(pos[..., 1], H)
     j, s = _cell(pos[..., 0], W)
-    d0 = _dens(warp, p0, p1, wp, k, k + 1, t, j)
-    d1 = _dens(warp, p0, p1, wp, k, k + 1, t, j + 1)
+    d0 = _dens(warp, sl, k, k + 1, t, j)
+    d1 = _dens(warp, sl, k, k + 1, t, j + 1)
     return (1 - s) * d0 + s * d1

@@ -1,14 +1,18 @@
 """RGL measured-BRDF evaluator (Dupuy & Jakob 2018 parameterization),
-isotropic files, counterpart of the JAX package's `bsdf/measured.py`.
+counterpart of the JAX package's `bsdf/measured.py`.
 
-Data model (per .bsdf tensor file, isotropic):
+Data model (per .bsdf tensor file):
+  phi_i   (Pp,)          incidence azimuth grid; Pp = 1 for isotropic files
   theta_i (T,)           incidence grid
   sigma   (2, W)         projected microfacet area sigma(wi), lookup table
   ndf     (2, W)         microfacet NDF D(wm), lookup table
-  vndf    (1, T, H, W)   visible-NDF warp over u_wm = (theta2u(th_m),
-                         phi2u(phi_m - phi_i)), per theta_i
-  luminance (1, T, h, w) sampling density over the vndf-warped unit square
-  rgb     (1, T, 3, h, w) measured BRDF ratio tables
+  vndf    (Pp, T, H, W)  visible-NDF warp over u_wm = (theta2u(th_m),
+                         phi2u(phi_m - phi_i)), per (phi_i, theta_i)
+  luminance (Pp, T, h, w) sampling density over the vndf-warped unit square
+  rgb     (Pp, T, 3, h, w) measured BRDF ratio tables
+Anisotropic files (Pp > 1) flatten the slices phi-major and blend the 4
+bracketing (phi_i, theta_i) slices bilinearly; isotropic ones blend the 2
+bracketing theta_i slices.
 
 Mappings (square-root elevation spacing): u = theta2u(th) = sqrt(2 th / pi),
 u2theta(u) = u^2 pi/2, phi2u(phi) = phi/(2 pi) + 0.5.
@@ -22,21 +26,21 @@ Evaluation chain (wi, wo upward):
 
 The JAX package's TPU layouts of the same tables (`rgb_rows`, one-hot
 lane selects) are not carried over: lookups here are plain gathers.
-Anisotropic files (|phi_i| > 1) are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from bsdf_diffusion_sampling_tpu_torch.bsdf.marginal2d import (
     Warp2D,
-    bracket,
     build_warp2d,
+    build_warp2d_aniso,
+    slice_weights,
     warp_eval,
     warp_invert,
     warp_sample,
@@ -74,22 +78,32 @@ class MeasuredBRDF(NamedTuple):
     ndf: torch.Tensor  # (2, W) lookup
     vndf: Warp2D
     luminance: Warp2D
-    rgb: torch.Tensor  # (T, 3, h, w)
+    rgb: torch.Tensor  # (Pp * T, 3, h, w), slices phi-major
+    # the phi_i grid (Pp,) of an anisotropic file, None for an isotropic one
+    phi_i_grid: Optional[torch.Tensor] = None
     name: str = ""
 
     def to(self, device) -> "MeasuredBRDF":
         return self._replace(theta_i_grid=self.theta_i_grid.to(device), sigma=self.sigma.to(device),
                              ndf=self.ndf.to(device), vndf=self.vndf.to(device),
-                             luminance=self.luminance.to(device), rgb=self.rgb.to(device))
+                             luminance=self.luminance.to(device), rgb=self.rgb.to(device),
+                             phi_i_grid=None if self.phi_i_grid is None else self.phi_i_grid.to(device))
 
 
 def measured_from_tensors(tf, name: str = "", device="cuda") -> MeasuredBRDF:
     """Build the evaluator from raw RGL tensor-file entries, on `device` (the
     card by default; pass device="cpu" for the CPU)."""
     device = resolve_device(device)
-    if np.asarray(tf["phi_i"]).shape[0] > 1:
-        raise NotImplementedError("anisotropic measured BRDFs are not ported yet")
     theta_i = np.array(tf["theta_i"], np.float32)
+    phi_i = np.array(tf["phi_i"], np.float32)
+    vndf_g = np.asarray(tf["vndf"], np.float64)
+    lum_g = np.asarray(tf["luminance"], np.float64)
+    rgb = np.array(tf["rgb"], np.float32)  # (Pp, T, 3, h, w)
+    aniso = phi_i.shape[0] > 1
+    if aniso:
+        vndf, lum = build_warp2d_aniso(vndf_g, theta_i, phi_i), build_warp2d_aniso(lum_g, theta_i, phi_i)
+    else:
+        vndf, lum = build_warp2d(vndf_g[0], theta_i), build_warp2d(lum_g[0], theta_i)
 
     def f32(key):
         return torch.from_numpy(np.array(tf[key], np.float32))
@@ -98,9 +112,10 @@ def measured_from_tensors(tf, name: str = "", device="cuda") -> MeasuredBRDF:
         theta_i_grid=torch.from_numpy(theta_i),
         sigma=f32("sigma"),
         ndf=f32("ndf"),
-        vndf=build_warp2d(np.asarray(tf["vndf"], np.float64)[0], theta_i),
-        luminance=build_warp2d(np.asarray(tf["luminance"], np.float64)[0], theta_i),
-        rgb=f32("rgb")[0].contiguous(),
+        vndf=vndf,
+        luminance=lum,
+        rgb=torch.from_numpy(np.ascontiguousarray(rgb.reshape((-1,) + rgb.shape[2:]))),
+        phi_i_grid=torch.from_numpy(phi_i) if aniso else None,
         name=name,
     ).to(device)
 
@@ -124,17 +139,17 @@ def _lookup_2d(table: torch.Tensor, u_x, u_y):
             + table[y1, x0] * (1 - fx) * fy + table[y1, x1] * fx * fy)
 
 
-def _rgb_lookup(brdf: MeasuredBRDF, s: torch.Tensor, theta_i):
-    """(N, 3) rgb table value at unit-square s, interpolated over theta_i."""
-    T, _, h, w = brdf.rgb.shape
-    ti, tw = bracket(brdf.theta_i_grid, theta_i)
+def _rgb_lookup(brdf: MeasuredBRDF, s: torch.Tensor, theta_i, phi_i):
+    """(N, 3) rgb table value at unit-square s, interpolated over theta_i
+    (and phi_i for anisotropic files)."""
+    _, _, h, w = brdf.rgb.shape
     xf = torch.clamp(s[..., 0] * (w - 1), 0.0, w - 1 - 1e-6)
     yf = torch.clamp(s[..., 1] * (h - 1), 0.0, h - 1 - 1e-6)
     x0, y0 = xf.to(torch.int64), yf.to(torch.int64)
     fx, fy = (xf - x0)[..., None], (yf - y0)[..., None]
     x1, y1 = torch.clamp(x0 + 1, max=w - 1), torch.clamp(y0 + 1, max=h - 1)
     out = None
-    for p, pw in ((ti, 1.0 - tw), (torch.clamp(ti + 1, max=T - 1), tw)):
+    for p, pw in slice_weights(brdf.theta_i_grid, brdf.phi_i_grid, theta_i, phi_i):
         c = [brdf.rgb[p, :, yy, xx] for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
         v = c[0] * (1 - fx) * (1 - fy) + c[1] * fx * (1 - fy) + c[2] * (1 - fx) * fy + c[3] * fx * fy
         v = pw[..., None] * v
@@ -173,20 +188,20 @@ def _query(brdf: MeasuredBRDF, wi, wo):
     theta_i, phi_i = _spherical(wi)
     theta_m, phi_m = _spherical(wm)
     u_x, u_y = _u_wm(theta_m, phi_m, phi_i)
-    s, vndf_pdf = warp_invert(brdf.vndf, torch.stack([u_x, u_y], dim=-1), theta_i)
+    s, vndf_pdf = warp_invert(brdf.vndf, torch.stack([u_x, u_y], dim=-1), theta_i, phi_i)
     return active, wm, theta_i, phi_i, theta_m, u_x, u_y, s, vndf_pdf
 
 
 def _f(brdf, active, theta_i, phi_i, u_x, u_y, s):
-    fr = _rgb_lookup(brdf, s, theta_i)
+    fr = _rgb_lookup(brdf, s, theta_i, phi_i)
     d = _lookup_2d(brdf.ndf, u_x, u_y)
     sig = _lookup_2d(brdf.sigma, theta2u(theta_i), phi2u(phi_i))
     fr = torch.clamp(fr * (d / torch.clamp(4.0 * sig, min=1e-12))[..., None], min=0.0)
     return torch.where(active[..., None], fr, 0.0)
 
 
-def _pdf(brdf, active, wo, wm, theta_i, theta_m, u_x, s, vndf_pdf):
-    lum_pdf = warp_eval(brdf.luminance, s, theta_i)
+def _pdf(brdf, active, wo, wm, theta_i, phi_i, theta_m, u_x, s, vndf_pdf):
+    lum_pdf = warp_eval(brdf.luminance, s, theta_i, phi_i)
     return torch.where(active, vndf_pdf * lum_pdf / _solid_angle_jacobian(u_x, theta_m, wo, wm), 0.0)
 
 
@@ -198,8 +213,8 @@ def eval_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.T
 
 def pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """Solid-angle pdf of wo under sample_brdf."""
-    active, wm, theta_i, _, theta_m, u_x, _, s, vndf_pdf = _query(brdf, wi, wo)
-    return _pdf(brdf, active, wo, wm, theta_i, theta_m, u_x, s, vndf_pdf)
+    active, wm, theta_i, phi_i, theta_m, u_x, _, s, vndf_pdf = _query(brdf, wi, wo)
+    return _pdf(brdf, active, wo, wm, theta_i, phi_i, theta_m, u_x, s, vndf_pdf)
 
 
 def eval_pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,15 +222,15 @@ def eval_pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> Tup
     (eval_brdf(..), pdf_brdf(..)) exactly."""
     active, wm, theta_i, phi_i, theta_m, u_x, u_y, s, vndf_pdf = _query(brdf, wi, wo)
     return (_f(brdf, active, theta_i, phi_i, u_x, u_y, s),
-            _pdf(brdf, active, wo, wm, theta_i, theta_m, u_x, s, vndf_pdf))
+            _pdf(brdf, active, wo, wm, theta_i, phi_i, theta_m, u_x, s, vndf_pdf))
 
 
 def sample_brdf(brdf: MeasuredBRDF, u: torch.Tensor, wi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Importance-sample wo given wi and uniforms u (N, 2). Returns (wo, pdf);
     invalid (downward) results carry pdf 0."""
     theta_i, phi_i = _spherical(wi)
-    s, lum_pdf = warp_sample(brdf.luminance, u, theta_i)
-    u_wm, vndf_pdf = warp_sample(brdf.vndf, s, theta_i)
+    s, lum_pdf = warp_sample(brdf.luminance, u, theta_i, phi_i)
+    u_wm, vndf_pdf = warp_sample(brdf.vndf, s, theta_i, phi_i)
     theta_m = u2theta(u_wm[..., 0])
     phi_m = u2phi(u_wm[..., 1]) + phi_i
     st, ct = torch.sin(theta_m), torch.cos(theta_m)

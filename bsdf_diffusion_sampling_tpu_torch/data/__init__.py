@@ -1,2 +1,2 @@
-"""MCMC training data: the batched stretch-move ensemble and the banded
-dataset generator."""
+"""Training data: the batched stretch-move ensemble, the banded dataset
+generator, and tabulated inverse-CDF sampling."""

@@ -1,1 +1,2 @@
-"""Host-side native code: the SAH BVH builder and EXR image IO."""
+"""Host-side native code: the SAH BVH builder, the tabulated sampler's C++
+twin, and EXR image IO."""

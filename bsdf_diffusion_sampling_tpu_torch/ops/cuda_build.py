@@ -3,26 +3,48 @@
 Each `csrc/*.cu` file is compiled on first use with `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface, which `ctypes`
 loads; each host `csrc/*.cpp` file (the BVH builder) is compiled the same way
-with `g++`. Libraries go to `_build/` inside the package, named by a hash of
-the sources and flags, so an edited source is rebuilt and an unchanged one is
-reused; the key of a `.cu` library also covers the shared headers
-(`csrc/*.cuh`). Nothing is built when a module is imported.
+with `g++`. Libraries are named by a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is reused; the key of a `.cu`
+library also covers the shared headers (`csrc/*.cuh`). Nothing is built when
+a module is imported.
+
+Where the libraries go (`BUILD_DIR`, read from `BSDF_TORCH_BUILD_DIR` when
+this module is imported):
+  unset          -> `_build/` inside the package
+  a path         -> that directory
+  empty string   -> a fresh temporary directory for the process, removed at
+                    its exit, so every library is rebuilt
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+
+
+def _build_dir() -> Path:
+    env = os.environ.get("BSDF_TORCH_BUILD_DIR")
+    if env is None:
+        return _PKG / "_build"
+    if env:
+        return Path(env)
+    tmp = tempfile.mkdtemp(prefix="bsdf_torch_build-")
+    atexit.register(shutil.rmtree, tmp, True)
+    return Path(tmp)
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -2,7 +2,8 @@
 the JAX package's `render/integrator.py`.
 
 Every bounce runs on the whole wavefront at once: closest hits through the
-8-wide BVH (kernel K5 on the card, its plain walker on the CPU), masked
+8-wide BVH (kernel K5 on the card, its plain walker on the CPU), or through
+the binary BVH's lockstep walk for a scene built with `wide=False`, masked
 material dispatch (no queue compaction), NEE against the envmap and point
 lights with shadow rays (K5's any-hit variant), BSDF sampling on every
 matball in one batch (kernel K1 for a neural disk matball), MIS by the
@@ -35,7 +36,7 @@ sample count cross ranks in one `all_reduce` a pass. The traversals'
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +56,7 @@ from bsdf_diffusion_sampling_tpu_torch.render.lambert import (
     to_world,
 )
 from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, Scene
+from bsdf_diffusion_sampling_tpu_torch.render.bvh import BVH, intersect
 from bsdf_diffusion_sampling_tpu_torch.render.bvh8 import BVH8
 from bsdf_diffusion_sampling_tpu_torch.render.traverse8 import Hit, intersect8
 
@@ -140,15 +142,22 @@ def _sort_perm(sort_key):
     return perm, inv
 
 
-def _isect(accel: BVH8, ro, rd, active) -> Hit:
-    """Closest hit, traced in sort-key order."""
+def _isect(accel: Union[BVH8, BVH], ro, rd, active) -> Hit:
+    """Closest hit: an 8-wide accel is traced by K5 (on the card) in
+    sort-key order, a binary one by its lockstep walk. The accel's type
+    decides, never the device."""
+    if isinstance(accel, BVH):
+        return intersect(accel, ro, rd, active=active)
     perm, inv = _sort_perm(_ray_sort_key(rd, active))
     h = intersect8(accel, ro[perm], rd[perm], active=active[perm])
     return Hit(h.t[inv], h.prim[inv], h.u[inv], h.v[inv], h.truncated)
 
 
-def _occl(accel: BVH8, ro, rd, t_max, active):
-    """(occluded, truncated) of shadow rays, traced in sort-key order."""
+def _occl(accel: Union[BVH8, BVH], ro, rd, t_max, active):
+    """(occluded, truncated) of shadow rays, dispatched as `_isect` is."""
+    if isinstance(accel, BVH):
+        h = intersect(accel, ro, rd, t_max, active=active, any_hit=True)
+        return h.t < t_max * 0.9999, h.truncated
     perm, inv = _sort_perm(_ray_sort_key(rd, active))
     tm = t_max[perm]
     h = intersect8(accel, ro[perm], rd[perm], tm, active=active[perm], any_hit=True)
@@ -216,7 +225,7 @@ def _ball_filter(matballs: tuple, mat_id, w_rgb):
     return out
 
 
-def _bounce_body(accel: BVH8, env: EnvMap, lights: torch.Tensor, state, rnd: BounceRandoms, depth: int, *,
+def _bounce_body(accel: Union[BVH8, BVH], env: EnvMap, lights: torch.Tensor, state, rnd: BounceRandoms, depth: int, *,
                  matball: tuple, mark: Callable[[str], None] | None = None):
     """ONE path-tracing bounce for the whole wavefront. `state` is (ro, rd,
     px, L, beta, alive, prev_pdf). Returns (state, truncated) where

@@ -57,6 +57,8 @@ def plane_grid(g: int, half: float) -> Mesh:
 SUN_DIR = (0.4, 0.75, 0.5)
 SUN_RADIANCE = 60.0
 MATERIAL = "synthetic_rgb"  # the scene's mybsdf filename; its .bsdf file sits beside the XML
+ANISO_MATERIAL = "synthetic_aniso_rgb"  # the anisotropic twin (4 phi_i x 8 theta_i), written on request
+ANISO_PHI = 4
 ROUGHNESS = 0.35  # of the synthesized BRDF's lobes
 TABLE = (20, (0.4, 0.8, 0.4))  # scene_bsdf.xml's hook: material-table idx 20, a green albedo
 
@@ -79,37 +81,48 @@ def sky_envmap(h: int, w: int) -> np.ndarray:
     return img.astype(np.float32)
 
 
-def synthetic_measured_tensors(seed: int = 0, vndf_res=(64, 64), lum_res=(32, 32), sigma_w: int = 64) -> dict:
-    """An isotropic RGL-style tensor dict (the fields `measured_from_tensors`
-    reads) for a rough, tinted glossy material: vndf, ndf and luminance
-    tables are smooth lobes in the sqrt-elevation parameterization with a
-    little seeded noise, and the rgb ratios a tint over the luminance."""
+def synthetic_measured_tensors(seed: int = 0, vndf_res=(64, 64), lum_res=(32, 32), sigma_w: int = 64,
+                               n_phi: int = 1) -> dict:
+    """An RGL-style tensor dict (the fields `measured_from_tensors` reads)
+    for a rough, tinted glossy material: vndf, ndf and luminance tables are
+    smooth lobes in the sqrt-elevation parameterization with a little seeded
+    noise, and the rgb ratios a tint over the luminance. With n_phi > 1 it is
+    anisotropic: n_phi slices at phi_i = linspace(-pi, pi, n_phi), each with
+    its own seeded shift of the vndf's cosine modulation and of the
+    luminance lobe's centre (a bare per-slice scale would cancel in the
+    normalised warps). n_phi = 1 is the isotropic file (phi_i = 0)."""
     rng = np.random.default_rng(seed)
+    if n_phi == 1:
+        phi_i, shift = np.zeros(1), np.zeros((1, 3))
+    else:
+        phi_i = np.linspace(-math.pi, math.pi, n_phi)
+        shift = np.random.default_rng([seed, n_phi]).uniform(-1.0, 1.0, (n_phi, 3)) * [math.pi, 0.15, 0.15]
     theta_i = (np.linspace(0.0, 1.0, 8) ** 2 * (math.pi / 2) * 0.98).astype(np.float32)
     hv, wv = vndf_res
     ux = np.linspace(0.0, 1.0, hv)[:, None] * np.ones((1, wv))  # rows: theta_m, as u^2 pi/2
     th_m = ux * ux * (math.pi / 2)
     lobe = np.exp(-(np.tan(np.minimum(th_m, 1.55)) / ROUGHNESS) ** 2) + 0.02
-    vndf = np.stack([lobe * (1.0 + 0.3 * math.sin(t) * np.cos(np.linspace(0, 2 * math.pi, wv))[None, :])
-                     for t in theta_i])
+    vndf = np.stack([[lobe * (1.0 + 0.3 * math.sin(t) * np.cos(np.linspace(0, 2 * math.pi, wv) - d[0])[None, :])
+                      for t in theta_i] for d in shift])
     vndf *= 1.0 + 0.05 * rng.random(vndf.shape)
     hl, wl = lum_res
     yy, xx = np.meshgrid(np.linspace(0, 1, hl), np.linspace(0, 1, wl), indexing="ij")
-    lum = np.stack([np.exp(-((xx - 0.3 - 0.2 * t) ** 2 + (yy - 0.5) ** 2) / 0.08) + 0.1 for t in theta_i])
+    lum = np.stack([[np.exp(-((xx - 0.3 - 0.2 * t - d[1]) ** 2 + (yy - 0.5 - d[2]) ** 2) / 0.08) + 0.1
+                     for t in theta_i] for d in shift])
     lum *= 1.0 + 0.05 * rng.random(lum.shape)
     tint = np.array([0.9, 0.6, 0.3])
-    rgb = lum[:, None] * tint[None, :, None, None] * 0.5
+    rgb = lum[:, :, None] * tint[None, None, :, None, None] * 0.5
     ndf_row = np.exp(-(np.tan(np.minimum(np.linspace(0, 1, sigma_w) ** 2 * math.pi / 2, 1.55)) / ROUGHNESS) ** 2)
     ndf_row = ndf_row / (math.pi * ROUGHNESS ** 2) + 1e-3
     sigma_row = 0.5 + 0.5 * np.cos(np.linspace(0, 1, sigma_w) ** 2 * math.pi / 2)
     return {
         "theta_i": theta_i,
-        "phi_i": np.zeros(1, np.float32),
+        "phi_i": phi_i.astype(np.float32),
         "sigma": np.stack([sigma_row, sigma_row]).astype(np.float32),
         "ndf": np.stack([ndf_row, ndf_row]).astype(np.float32),
-        "vndf": vndf[None].astype(np.float32),
-        "luminance": lum[None].astype(np.float32),
-        "rgb": rgb[None].astype(np.float32),
+        "vndf": vndf.astype(np.float32),
+        "luminance": lum.astype(np.float32),
+        "rgb": rgb.astype(np.float32),
     }
 
 
@@ -184,18 +197,24 @@ def _xml(width: int, height: int, spp: int, max_depth: int, lights, table) -> st
 
 def write_scene(directory: str, *, n_lat: int = 150, n_lon: int = 200, plane_g: int = 32,
                 env_res=(128, 256), width: int = 512, height: int = 512, spp: int = 64,
-                max_depth: int = 12, lights=(), table=None) -> str:
+                max_depth: int = 12, lights=(), table=None, anisotropic: bool = False) -> str:
     """Write the scene into `directory` and return the XML's path. `lights`
     is a list of point lights (x, y, z, r, g, b). Without `table` the
     matball is the measured BRDF, written to `<directory>/<MATERIAL>.bsdf`,
     and the XML is `scene_measured.xml`; with `table` = (idx, albedo) (e.g.
-    `TABLE`) it is that material-table entry and the XML `scene_bsdf.xml`."""
+    `TABLE`) it is that material-table entry and the XML `scene_bsdf.xml`.
+    With `anisotropic`, `<directory>/<ANISO_MATERIAL>.bsdf` (4 phi_i x 8
+    theta_i slices, vndf 64 x 64, luminance 32 x 32) is written too, for
+    `--material synthetic_aniso_rgb`."""
     os.makedirs(directory, exist_ok=True)
     write_serialized(os.path.join(directory, "scene.serialized"),
                      [plane_grid(plane_g, 6.0), uv_sphere(n_lat, n_lon)])
     write_exr(os.path.join(directory, "envmap.exr"), sky_envmap(*env_res))
     if table is None:
         write_tensor_file(os.path.join(directory, f"{MATERIAL}.bsdf"), synthetic_measured_tensors())
+    if anisotropic:
+        write_tensor_file(os.path.join(directory, f"{ANISO_MATERIAL}.bsdf"),
+                          synthetic_measured_tensors(n_phi=ANISO_PHI))
     path = os.path.join(directory, "scene_measured.xml" if table is None else "scene_bsdf.xml")
     with open(path, "w") as f:
         f.write(_xml(width, height, spp, max_depth, lights, table))

@@ -17,11 +17,12 @@ names, per-shape inline `mybsdf` materials, point-light emitters):
 - Emitters: an envmap and/or point lights; a scene without an envmap gets
   a black placeholder so the integrator is structurally identical.
 
-Output is a Scene: the 8-wide BVH over all world-space triangles with
+Output is a Scene: the BVH over all world-space triangles with
 per-triangle material ids, the envmap, point lights, the camera and the
-description. The JAX package's binary BVH (`render/bvh.py`) is not ported
-yet; the 8-wide one serves the card (kernel K5) and the CPU (its plain
-walker) alike.
+description. The BVH is the 8-wide one by default (`wide=True`), which
+kernel K5 walks on the card and its plain walker on the CPU; `wide=False`
+builds the binary one (`render/bvh.py`), walked in plain PyTorch on either.
+The integrator picks the walk by the accel's type.
 """
 
 from __future__ import annotations
@@ -29,12 +30,13 @@ from __future__ import annotations
 import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
+from bsdf_diffusion_sampling_tpu_torch.render.bvh import BVH, build_bvh
 from bsdf_diffusion_sampling_tpu_torch.render.bvh8 import BVH8, build_bvh8
 from bsdf_diffusion_sampling_tpu_torch.render.camera import Camera, make_camera
 from bsdf_diffusion_sampling_tpu_torch.render.envmap import EnvMap, black_envmap, load_envmap
@@ -63,7 +65,7 @@ class SceneDesc:
 
 
 class Scene(NamedTuple):
-    accel: BVH8
+    accel: Union[BVH8, BVH]
     envmap: EnvMap
     camera: Camera
     desc: SceneDesc
@@ -278,9 +280,10 @@ def parse_scene_xml(path: str, spp: Optional[int] = None,
     )
 
 
-def build_scene(desc: SceneDesc, device="cuda") -> Scene:
+def build_scene(desc: SceneDesc, device="cuda", wide: bool = True) -> Scene:
     """The scene's accel, envmap and lights on `device` (the card by default;
-    pass device="cpu" for the CPU)."""
+    pass device="cpu" for the CPU). The accel is the 8-wide BVH, or with
+    `wide=False` the binary one."""
     device = resolve_device(device)
     meshes, mats = [], []
     for sh in desc.shapes:
@@ -290,11 +293,12 @@ def build_scene(desc: SceneDesc, device="cuda") -> Scene:
         env = load_envmap(desc.envmap_path, desc.envmap_to_world, desc.envmap_scale)
     else:
         env = black_envmap()
-    scene = Scene(accel=build_bvh8(build_soup(meshes, mats)), envmap=env, camera=desc.camera, desc=desc,
+    soup = build_soup(meshes, mats)
+    scene = Scene(accel=build_bvh8(soup) if wide else build_bvh(soup), envmap=env, camera=desc.camera, desc=desc,
                   lights=torch.from_numpy(np.array(desc.point_lights, np.float32)))
     return scene.to(device)
 
 
-def load_scene(path: str, device="cuda", **overrides) -> Scene:
+def load_scene(path: str, device="cuda", wide: bool = True, **overrides) -> Scene:
     device = resolve_device(device)
-    return build_scene(parse_scene_xml(path, **overrides), device=device)
+    return build_scene(parse_scene_xml(path, **overrides), device=device, wide=wide)

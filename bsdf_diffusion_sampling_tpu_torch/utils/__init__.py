@@ -1,1 +1,2 @@
-"""Validation metrics."""
+"""Validation metrics, numpy oracles, analytic 1-D distributions and figure
+exports."""

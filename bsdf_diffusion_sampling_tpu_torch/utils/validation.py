@@ -16,6 +16,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
+
 
 def kl_divergence_grid(p: np.ndarray, q: np.ndarray, eps: float = 1e-12) -> float:
     """KL(p || q) for two nonnegative grids, each normalised to sum 1."""
@@ -32,14 +34,16 @@ def pdf_grid_2d(
     lo: Tuple[float, float],
     hi: Tuple[float, float],
     bins: int = 64,
-    device="cpu",
+    device="cuda",
     sub: int = 1,
 ) -> np.ndarray:
     """Evaluate a batched 2-D density at the bins x bins cell centres, given
-    to `pdf_fn` as one float32 tensor of points (n, 2) on `device`. With
+    to `pdf_fn` as one float32 tensor of points (n, 2) on `device` (the card
+    by default; pass device="cpu" for the CPU). With
     `sub` > 1 each cell holds the mean over the centres of its sub x sub
     sub-cells: the cell's integral, which a histogram estimates, where the
     centre's value is off by the density's curvature."""
+    device = resolve_device(device)
     n = bins * sub
     cx = np.linspace(lo[0], hi[0], n + 1)
     cy = np.linspace(lo[1], hi[1], n + 1)

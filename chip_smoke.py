@@ -94,9 +94,28 @@ Phases, each of which raises on failure:
      launches and rows a launch, the collectives, and the ms a pass and an
      iteration of two ranks against one process (two processes that share
      one card: not a scaling figure);
-  13. print the `training` line, the `differentiable` line, the
-     `multidevice` line, the card's line, the `kernels` line (each kernel's
-     row-offset status beside its numbers) and the `ok` line.
+  13. the rest: (a) the anisotropic vndf and luminance warps (4 phi_i x 8
+     theta_i slices) at 2^20 queries, invert(sample(u)) == u to 2e-5 and
+     eval == the sample's pdf to 2e-4 on >= 99.5% of rows, timed beside the
+     isotropic warps; (b) the anisotropic BRDF at 2^20 directions: pdf_brdf
+     at its samples (median relative gap < 1e-3), identical phi slices
+     equal to the isotropic BRDF, eval responding to phi_i; (c) the
+     `synthetic_aniso_rgb` matball through `cli/render.py` at 512 x 512,
+     depth 12, 16 spp in gt, neural-disk and neural-spherical (K1, K4 and
+     K5 launched as in phase 8), the isotropic material at 16 spp beside
+     it, a depth-1 bounce breakdown of neural-disk, aniso and iso; (d) the
+     MCMC ensemble on its disk target from `cli/train.py` against the
+     pdf grid (KL < 0.05); (e) `online_sampling` of that target (1,024
+     omega_i x 129^2 vertices, 1,024 draws each; ms and peak memory), 8 of
+     its rows at 2^18 draws against their pmf (KL < 0.01) and 64 rows
+     through `samplewi_native` (KL < 0.02); (f) the binary BVH's walk
+     against K5 on phase 6's four ray sets at 2^20 rays (flags equal, t
+     within 1e-5, shared-edge ties counted), timed beside K5; (g) 2^20
+     draws of each `distributions1d` family on the card (KS < 5e-3);
+  14. print the `training` line, the `differentiable` line, the
+     `multidevice` line, the `rest` line, the card's line, the `kernels`
+     line (each kernel's row-offset status and its launches in the
+     anisotropic renders beside its numbers) and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -123,14 +142,24 @@ import torch.distributed as dist
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
 from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
 from bsdf_diffusion_sampling_tpu_torch.bsdf.analytic import ggx_shading_disk
+from bsdf_diffusion_sampling_tpu_torch.bsdf.marginal2d import warp_eval, warp_invert, warp_sample
 from bsdf_diffusion_sampling_tpu_torch.bsdf.materials import BSDF_MATERIALS
+from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import (
+    eval_brdf,
+    load_measured,
+    measured_from_tensors,
+    pdf_brdf,
+    sample_brdf,
+)
 from bsdf_diffusion_sampling_tpu_torch.data.datasets import generate_brdf_dataset
 from bsdf_diffusion_sampling_tpu_torch.data.mcmc import ensemble_mcmc, make_domain_log_prob
+from bsdf_diffusion_sampling_tpu_torch.data.tabulated import build_tabulated, domain_grid, online_sampling, sample_tabulated
 from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
 from bsdf_diffusion_sampling_tpu_torch.models.zoo import gmm_disk_base, mixture_spherical_base, unet_apply, unet_init
+from bsdf_diffusion_sampling_tpu_torch.native.samplewilib import samplewi_native
 from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact, transport, transport_with_det
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
@@ -139,6 +168,7 @@ from bsdf_diffusion_sampling_tpu_torch.cli import import_reference as import_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
 from bsdf_diffusion_sampling_tpu_torch.render import traverse8 as t8
+from bsdf_diffusion_sampling_tpu_torch.render.bvh import intersect as binary_intersect
 from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
 from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
     _bounce_body,
@@ -152,10 +182,17 @@ from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
 )
 from bsdf_diffusion_sampling_tpu_torch.render.lambert import cosine_sample, make_frame, to_world
 from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, neural_pdf, neural_sample
-from bsdf_diffusion_sampling_tpu_torch.render.procedural import TABLE, write_scene
+from bsdf_diffusion_sampling_tpu_torch.render.procedural import (
+    ANISO_MATERIAL,
+    ANISO_PHI,
+    TABLE,
+    synthetic_measured_tensors,
+    write_scene,
+)
 from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, load_scene
 from bsdf_diffusion_sampling_tpu_torch.train import stages
 from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree, save_pytree
+from bsdf_diffusion_sampling_tpu_torch.utils import distributions1d as dists
 from bsdf_diffusion_sampling_tpu_torch.utils.validation import histogram_grid_2d, kl_divergence_grid, pdf_grid_2d
 
 N_MAIN = 1 << 20  # the wavefront of the main path, the checks and the timings
@@ -1932,6 +1969,346 @@ def multidevice_phase(d: str, scenes: dict, weights: dict, training: dict, devic
     return out
 
 
+# ------------------------------------------------------------- the rest ----
+
+# Phase 13: the modules of the last slice. (c) renders the procedural scene
+# with the anisotropic material (4 phi_i x 8 theta_i) at 512 x 512, depth 12,
+# 16 spp in each of phase 8's measured modes, and the isotropic one beside it
+# at the same spp.
+REST_N = 1 << 20
+REST_SPP = 16
+REST_MODES = ("gt", "neural-disk", "neural-spherical")
+TOL_WARP_U, TOL_WARP_PDF, MIN_SHARE = 2e-5, 2e-4, 0.995  # tests/test_torch_measured*.py's laws and share
+# (e) online_sampling at the CLI-like size: 1,024 omega_i x 129^2 vertices, 1,024 draws each; then 8 of its
+# rows at 2^18 draws (64 x 64 bins, the pmf summed 2 x 2), and 64 rows through the native twin at 4,096 draws
+# a row, binned 8 x 8 (the pmf summed 16 x 16): finer bins would put the KL's statistical floor, (bins - 1) /
+# 2n, near the gate on their own
+TAB_N_WI, TAB_RES, TAB_PER_WI = 1024, 128, 1024
+TAB_ROWS, TAB_ROW_N, TAB_BINS, TOL_KL_TAB = 8, 1 << 18, 64, 0.01
+NATIVE_ROWS, NATIVE_N, NATIVE_BINS, TOL_KL_NATIVE = 64, 4096, 8, 0.02
+TOL_KL_MCMC = 0.05
+BVH_T_RTOL, TIE_BARY = 1e-5, 1e-6  # tests/test_torch_bvh8.py's T_RTOL; a shared-edge tie's barycentric
+TOL_KS = 5e-3
+
+
+def event_timed(fn):
+    """fn's result and its ms between two CUDA events, one call."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def share_close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> float:
+    """The share of rows whose every element has |a - b| <= atol + rtol |b|."""
+    close = (a - b).abs() <= atol + rtol * b.abs()
+    return float(close.reshape(a.shape[0], -1).all(-1).float().mean())
+
+
+def rest_warps(ab, ib, device) -> dict:
+    """(a) The anisotropic vndf and luminance warps at REST_N queries
+    (theta in [0, 1.4], phi over the whole circle): invert(sample(u)) == u
+    and eval == the sample's pdf on >= MIN_SHARE of rows; ms a call beside
+    the isotropic warps of the same size."""
+    gen = root_generator(SEED + 40, device)
+    u = torch.rand((REST_N, 2), generator=gen, device=device) * (1 - 2e-6) + 1e-6
+    theta = torch.rand(REST_N, generator=gen, device=device) * 1.4
+    phi = (torch.rand(REST_N, generator=gen, device=device) * 2 - 1) * math.pi
+    out = {}
+    for w in ("vndf", "luminance"):
+        wa, wiso = getattr(ab, w), getattr(ib, w)
+        pos, pdf = warp_sample(wa, u, theta, phi)
+        uu, _ = warp_invert(wa, pos, theta, phi)
+        ev = warp_eval(wa, pos, theta, phi)
+        r = {"slices": list(wa.density.shape), "res": list(wa.res),
+             "invert_share": share_close(uu, u, 0.0, TOL_WARP_U), "invert_max_abs": max_abs(uu, u),
+             "eval_share": share_close(ev, pdf, TOL_WARP_PDF, 0.0), "eval_max_rel": max_rel(ev, pdf),
+             "finite": bool(torch.isfinite(pos).all() and torch.isfinite(pdf).all())}
+        for kind, wp, ph in (("aniso", wa, phi), ("iso", wiso, None)):
+            r[f"ms_sample_{kind}"] = cuda_ms(lambda: warp_sample(wp, u, theta, ph))
+            r[f"ms_invert_{kind}"] = cuda_ms(lambda: warp_invert(wp, pos, theta, ph))
+            r[f"ms_eval_{kind}"] = cuda_ms(lambda: warp_eval(wp, pos, theta, ph))
+        log(f"  (a) {w} warp at n = {REST_N}: {r}")
+        require(r["finite"] and r["invert_share"] >= MIN_SHARE and r["eval_share"] >= MIN_SHARE,
+                f"aniso {w} warp: invert(sample(u)) or eval off the sample: {r}")
+        out[w] = r
+    return out
+
+
+def repeat_phi(tf: dict, pp: int) -> dict:
+    """An anisotropic tensor dict whose pp phi_i slices are copies of the
+    isotropic one's."""
+    out = dict(tf, phi_i=np.linspace(-math.pi, math.pi, pp).astype(np.float32))
+    for k in ("vndf", "luminance", "rgb"):
+        out[k] = np.repeat(tf[k], pp, axis=0)
+    return out
+
+
+def rest_brdf(ab, ib, device) -> dict:
+    """(b) The anisotropic BRDF at REST_N directions: pdf_brdf at the
+    sampled directions against the sample's pdf; identical phi slices
+    against the isotropic BRDF (tests/test_measured_aniso.py's gates); eval
+    responding to phi_i when the slices differ."""
+    gen = root_generator(SEED + 41, device)
+    wi = hemisphere(torch.rand((REST_N, 2), generator=gen, device=device))
+    wo_r = hemisphere(torch.rand((REST_N, 2), generator=gen, device=device))
+    u = torch.rand((REST_N, 2), generator=gen, device=device) * (1 - 2e-4) + 1e-4
+    wo, pdf = sample_brdf(ab, u, wi)
+    ok = pdf > 1e-5
+    q = pdf_brdf(ab, wi, wo)
+    out = {"valid_share": float(ok.float().mean()), "gap": gap_stats(q[ok], pdf[ok]),
+           "finite": bool(torch.isfinite(wo).all() and torch.isfinite(pdf).all() and torch.isfinite(q).all())}
+    same = measured_from_tensors(repeat_phi(synthetic_measured_tensors(), ANISO_PHI), device=device)
+    f_s, f_i = eval_brdf(same, wi, wo_r), eval_brdf(ib, wi, wo_r)
+    p_s, p_i = pdf_brdf(same, wi, wo_r), pdf_brdf(ib, wi, wo_r)
+    wo_s, sp_s = sample_brdf(same, u, wi)
+    _, sp_i = sample_brdf(ib, u, wi)
+    valid = sp_i > 0
+    rel = (sp_s[valid] / sp_i[valid] - 1).abs()
+    out["identical_slices"] = {
+        "eval_close": bool(torch.allclose(f_s, f_i, rtol=2e-4, atol=1e-8)), "eval_max_rel": max_rel(f_s, f_i),
+        "pdf_close": bool(torch.allclose(p_s, p_i, rtol=2e-4, atol=1e-8)), "pdf_max_rel": max_rel(p_s, p_i),
+        "valid_equal": bool(torch.equal(sp_s > 0, valid)), "sampled_pdf_p99": float(rel.quantile(0.99)),
+        "sampled_pdf_max": float(rel.max())}
+    n = 4096
+    ct = torch.full((n,), 0.7, device=device)
+    st = torch.sqrt(1 - ct * ct)
+
+    def at(a):
+        return torch.stack([st * torch.cos(a), st * torch.sin(a), ct], -1)
+
+    a1 = torch.linspace(-math.pi, math.pi, n, device=device)
+    e1, e2 = eval_brdf(ab, at(a1), at(a1 + 2.8)), eval_brdf(ab, at(a1 + 2.0), at(a1 + 4.8))
+    out["phi_response_max_rel"] = float(((e1 - e2).abs() / e1.clamp(min=1e-30)).max())
+    log(f"  (b) aniso BRDF at n = {REST_N}: {out}")
+    idn = out["identical_slices"]
+    require(out["finite"] and out["valid_share"] > 0.5 and out["gap"]["median"] < TOL_CONTRACT_MEDIAN,
+            f"aniso BRDF: pdf_brdf at the samples disagrees with the sample pdf: {out}")
+    require(idn["eval_close"] and idn["pdf_close"] and idn["valid_equal"] and idn["sampled_pdf_p99"] < 2e-4
+            and idn["sampled_pdf_max"] < 0.05, f"aniso BRDF with identical slices differs from the isotropic: {idn}")
+    require(out["phi_response_max_rel"] > 1e-2, "aniso BRDF: eval does not respond to phi_i")
+    return out
+
+
+def rest_renders(d: str, scenes: dict, weights: dict, images: dict, device) -> dict:
+    """(c) The anisotropic matball through `cli/render.py` in each measured
+    mode at REST_SPP, the launches a bounce gated as phase 8's; the
+    isotropic material at the same spp beside it; a depth-1 bounce
+    breakdown of neural-disk, aniso against iso."""
+
+    def cli(material, mode, spp, depth):
+        return render_cli.main(["--scene", scenes["measured"], "--bsdf-dir", d, "--material", material,
+                                "--mode", mode, "--checkpoint", weights.get(mode, ""), "--spp", str(spp),
+                                "--spp-chunk", str(RENDER_CHUNK), "--max-depth", str(depth),
+                                "--width", str(RENDER_RES), "--height", str(RENDER_RES), "--device", str(device),
+                                "--out", os.path.join(d, f"rest_{material}_{mode}")])
+
+    for mode in REST_MODES:  # warm-up
+        cli(ANISO_MATERIAL, mode, RENDER_CHUNK, 2)
+    out = {"renders": {}, "launches": {}}
+    for mode in REST_MODES:
+        for material in (ANISO_MATERIAL, "synthetic_rgb"):
+            (img, dt), counts = counted(lambda: cli(material, mode, REST_SPP, RENDER_DEPTH))
+            kind = "aniso" if material == ANISO_MATERIAL else "iso"
+            r = check_render(f"{kind} {mode}", img, dt, REST_SPP, counts, mode=mode)
+            out["renders"][f"{kind} {mode}"] = {k: r[k] for k in ("seconds", "mray_samples_per_s", "mean_rgb")}
+            if kind == "aniso":
+                out["launches"][mode] = counts
+                aniso_img = img
+            else:
+                out["renders"][f"aniso {mode}"]["differs_from_iso"] = float(np.abs(aniso_img - img).mean())
+        out["renders"][f"iso {mode} phase 8 ({RENDER_SPP} spp)"] = {
+            "mray_samples_per_s": images[f"measured {mode}"][1]["mray_samples_per_s"]}
+    scene = load_scene(scenes["measured"], device=device)
+    args = render_cli.build_parser().parse_args(["--scene", "", "--bsdf-dir", d, "--mode", "neural-disk",
+                                                 "--checkpoint", weights["neural-disk"]])
+    out["bounce_neural_disk"] = {
+        kind: bounce_breakdown(f"neural-disk {kind}", scene,
+                               render_cli.build_matball({"filename": mat, "idx": -1}, args, device), device)
+        for kind, mat in (("aniso", ANISO_MATERIAL), ("iso", "synthetic_rgb"))}
+    log(f"  (c) renders: {out['renders']}")
+    return out
+
+
+def rest_mcmc(d: str, device) -> dict:
+    """(d) The ensemble on the anisotropic material's disk target of
+    `cli/train.py` at omega_i = MCMC_CHECK_WI (phi_i = 0, between two phi
+    slices), 64 walkers x 2,500 sweeps (500 burn-in), against the pdf grid
+    of each cell's integral."""
+    pdf_fn = train_cli.make_target_pdf(train_cli.build_parser().parse_args(
+        ["--material", ANISO_MATERIAL, "--bsdf-dir", d]), device)
+    wi = torch.tensor(MCMC_CHECK_WI, device=device)
+
+    def density(x):
+        inside = (x ** 2).sum(-1) < 1.0
+        f = pdf_fn(wi.expand(x.shape[0], 2), torch.where(inside[:, None], x, 0.0))
+        return torch.where(inside, torch.clamp(f, min=0.0), 0.0)
+
+    def log_prob(x):
+        f = density(x)
+        return torch.where(f > 0, torch.log(torch.clamp(f, min=1e-38)), -math.inf)
+
+    g = root_generator(SEED + 42, device)
+    x0 = -0.5 * wi + 0.05 * torch.randn((64, 2), generator=g, device=device)
+    chain, acc = ensemble_mcmc(g, log_prob, x0, nsteps=2500, burn_in=500)
+    lo, hi = (-1.0, -1.0), (1.0, 1.0)
+    hist = histogram_grid_2d(chain.reshape(-1, 2).cpu().numpy(), lo, hi, MCMC_CHECK_BINS)
+    out = {"walkers": 64, "sweeps": 2500, "burn_in": 500, "acceptance": float(acc),
+           "kl": kl_divergence_grid(hist, pdf_grid_2d(density, lo, hi, MCMC_CHECK_BINS, device=device, sub=8))}
+    log(f"  (d) MCMC on the aniso target: {out}")
+    require(bool(torch.isfinite(chain).all()) and 0.1 < out["acceptance"] < 0.9, f"aniso MCMC: {out}")
+    require(out["kl"] < TOL_KL_MCMC, f"aniso MCMC: KL {out['kl']} against the pdf grid")
+    return out
+
+
+def pool(pmf: np.ndarray, bins: int) -> np.ndarray:
+    """(B, R, R) cell masses summed to (B, bins, bins): exact, R / bins cells a side."""
+    b, r, _ = pmf.shape
+    return pmf.reshape(b, bins, r // bins, bins, r // bins).sum(axis=(2, 4))
+
+
+def rest_tabulated(d: str, device) -> dict:
+    """(e) `online_sampling` of the anisotropic disk target; 8 of its rows
+    resampled at 2^18 draws against their pmf; 64 rows through the native
+    host twin against theirs."""
+    pdf_fn = train_cli.make_target_pdf(train_cli.build_parser().parse_args(
+        ["--material", ANISO_MATERIAL, "--bsdf-dir", d]), device)
+    gen = root_generator(SEED + 43, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (omega_i, omega_o), peak = peak_gib(lambda: online_sampling(pdf_fn, "disk", gen, TAB_N_WI, TAB_PER_WI,
+                                                                res=TAB_RES))
+    ms = 1e3 * (time.perf_counter() - t0)
+    # omega_i is stratified over the square [-1, 1]^2: the rows outside the
+    # unit disk have a zero target and no pmf; the gates read the others
+    wi_rows = omega_i[::TAB_PER_WI]
+    inside = (wi_rows ** 2).sum(-1) < 1.0
+    o = omega_o.reshape(TAB_N_WI, TAB_PER_WI, 2)[inside]
+    out = {"n_wi": TAB_N_WI, "res": TAB_RES, "per_wi": TAB_PER_WI, "target_evaluations": TAB_N_WI * (TAB_RES + 1) ** 2,
+           "ms": ms, "peak_gib": peak, "shape": list(omega_o.shape), "rows_inside_disk": int(inside.sum()),
+           "finite": bool(torch.isfinite(omega_o).all()), "in_disk": bool(((o ** 2).sum(-1)  # a cell whose centre is in overshoots by half its diagonal at most
+                             <= (math.sqrt(0.995) + math.sqrt(2.0) / TAB_RES) ** 2 + 1e-6).all())}
+    wi_rows = wi_rows[inside]
+    grid = domain_grid("disk", TAB_RES, device=device)
+
+    def table(rows):
+        n = rows.shape[0]
+        vals = pdf_fn(rows.repeat_interleave(grid.shape[0], dim=0), grid.repeat(n, 1))
+        return build_tabulated(vals.reshape(n, TAB_RES + 1, TAB_RES + 1), "disk")
+
+    tab = table(wi_rows[:TAB_ROWS])
+    x = sample_tabulated(root_generator(SEED + 44, device), tab, TAB_ROW_N).cpu().numpy()
+    want = pool(tab.pmf.cpu().double().numpy(), TAB_BINS)
+    kls = [kl_divergence_grid(np.histogram2d(x[b, :, 0], x[b, :, 1], bins=TAB_BINS, range=[[-1, 1], [-1, 1]])[0],
+                              want[b]) for b in range(TAB_ROWS)]
+    out["kl_rows"] = kls
+    tab = table(wi_rows[:NATIVE_ROWS])
+    pmf = tab.pmf.cpu().numpy()
+    samplewi_native(pmf[:1], 8, seed=SEED)  # builds the library
+    t0 = time.perf_counter()
+    xn = samplewi_native(pmf, NATIVE_N, seed=SEED + 45)
+    out["native_ms"], out["native_rows"] = 1e3 * (time.perf_counter() - t0), xn.shape[0]
+    joint = np.stack([np.histogram2d(xn[b, :, 0], xn[b, :, 1], bins=NATIVE_BINS, range=[[-1, 1], [-1, 1]])[0]
+                      for b in range(xn.shape[0])])
+    out["native_kl"] = kl_divergence_grid(joint, pool(pmf.astype(np.float64), NATIVE_BINS))
+    log(f"  (e) tabulated sampling: {out}")
+    require(out["finite"] and out["in_disk"] and out["shape"] == [TAB_N_WI * TAB_PER_WI, 2],
+            f"online_sampling: {out}")
+    require(max(kls) < TOL_KL_TAB, f"tabulated rows: KL {kls} against their pmf")
+    require(out["native_kl"] < TOL_KL_NATIVE, f"samplewi_native: KL {out['native_kl']} against the pmf")
+    return out
+
+
+def rest_binary_bvh(d: str, scenes: dict, accel8, cam, device) -> dict:
+    """(f) The binary BVH's walk against K5 on the four ray sets of phase 6
+    at N_MAIN rays: hit (or occluded) flags equal and the closest hit's t
+    within BVH_T_RTOL, except on shared-edge ties (a barycentric < TIE_BARY in either hit);
+    its ms beside K5's."""
+    t0 = time.time()
+    bvh = load_scene(scenes["measured"], device=device, wide=False).accel
+    out = {"nodes": int(bvh.count.shape[0]), "depth": bvh.max_depth, "build_and_load_s": time.time() - t0}
+    for name, (ro, rd, t_max, act, any_hit) in k5_ray_sets(accel8, cam, device, N_MAIN, SEED + 5).items():
+        hb, ms = event_timed(lambda: binary_intersect(bvh, ro, rd, t_max, active=act, any_hit=any_hit))
+        hk = t8.intersect8(accel8, ro, rd, t_max, active=act, any_hit=any_hit)
+        thr = t_max * 0.9999 if any_hit else torch.full_like(t_max, 1e29)
+        fb, fk = act & (hb.t < thr), act & (hk.t < thr)
+        both = fb & fk
+        # an any-hit walk stops at the first hit it accepts, which need not be
+        # the nearest: only its flag is compared
+        t_off = both & ((hb.t - hk.t).abs() > BVH_T_RTOL * hk.t.abs()) & (not any_hit)
+        differ = (fb != fk) | t_off
+
+        def tie(h):
+            return torch.minimum(torch.minimum(h.u, h.v), 1 - h.u - h.v) < TIE_BARY
+
+        untied = differ & ~((fb & tie(hb)) | (fk & tie(hk)))
+        ms_k5 = cuda_ms(lambda: t8.intersect8(accel8, ro, rd, t_max, active=act, any_hit=any_hit))
+        r = {"rays": N_MAIN, "hits": int(fb.sum()), "differ": int(differ.sum()), "shared_edge_ties": int(
+            (differ & ~untied).sum()), "untied": int(untied.sum()), "truncated": bool(hb.truncated),
+             "ms_binary": ms, "ms_k5": ms_k5}
+        log(f"  (f) binary BVH {name:12s} vs K5: {r}")
+        require(r["untied"] == 0 and not r["truncated"], f"binary BVH {name}: {r}")
+        out[name] = r
+    out["ms_binary_four_sets"] = sum(out[k]["ms_binary"] for k in ("primary", "secondary", "shadow_env",
+                                                                    "shadow_point"))
+    out["ms_k5_four_sets"] = sum(out[k]["ms_k5"] for k in ("primary", "secondary", "shadow_env", "shadow_point"))
+    return out
+
+
+def rest_distributions(device) -> dict:
+    """(g) REST_N draws on the card of each `distributions1d` family: the
+    empirical CDF against the cumulative pdf (trapezoid on 2^16 + 1 points)."""
+
+    def custom_pdf(x):
+        return torch.exp(-((x - 0.3) ** 2) / 0.02) + 0.5 * torch.exp(-((x + 0.4) ** 2) / 0.05) + 0.05
+
+    fams = {"uniform": (dists.Uniform(-1.0, 2.0), (-1.0, 2.0)), "gaussian": (dists.Gaussian(0.3, 0.7), (-5.3, 5.9)),
+            "truncated_gaussian": (dists.TruncatedGaussian(0.2, 0.5, -0.5, 1.0), (-0.5, 1.0)),
+            "beta": (dists.Beta(2.5, 1.5), (0.0, 1.0)), "straight_line": (dists.StraightLine(), (0.0, 1.0)),
+            "custom": (dists.CustomDistribution(custom_pdf, -1.0, 1.0), (-1.0, 1.0))}
+    two = dists.TwoDCombination(dists.Gaussian(0.0, 0.4), dists.Beta(2.0, 3.0))
+    gen = root_generator(SEED + 46, device)
+    out = {}
+
+    def ks(x, dist, lo, hi):
+        grid = torch.linspace(lo, hi, (1 << 16) + 1, device=device, dtype=torch.float64)
+        p = dist.pdf(grid.float()).double()
+        cdf = torch.cat([torch.zeros(1, device=device, dtype=torch.float64),
+                         torch.cumsum(0.5 * (p[1:] + p[:-1]) * (grid[1:] - grid[:-1]), 0)])
+        ecdf = torch.searchsorted(torch.sort(x).values.double().contiguous(), grid, right=True) / x.shape[0]
+        return float((ecdf - cdf / cdf[-1]).abs().max())
+
+    for name, (dist, (lo, hi)) in fams.items():
+        x = dist.sample(gen, REST_N)
+        require(x.device.type == device.type and bool(torch.isfinite(x).all()), f"{name}: draws")
+        out[name] = ks(x, dist, lo, hi)
+    xy = two.sample(gen, REST_N)
+    out["two_d_x"], out["two_d_y"] = ks(xy[:, 0], two.dist_x, -2.4, 2.4), ks(xy[:, 1], two.dist_y, 0.0, 1.0)
+    log(f"  (g) KS of {REST_N} draws on the card: {out}")
+    require(max(out.values()) < TOL_KS, f"distributions: KS {out}")
+    return out
+
+
+def rest_phase(d: str, scenes: dict, weights: dict, images: dict, scene, device) -> dict:
+    """Phase 13: the anisotropic warps and BRDF, the renders of the
+    anisotropic matball, MCMC on its target, tabulated sampling and its
+    native twin, the binary BVH against K5, the 1-D distributions."""
+    ab = load_measured(os.path.join(d, ANISO_MATERIAL + ".bsdf"), device=device)
+    ib = load_measured(os.path.join(d, "synthetic_rgb.bsdf"), device=device)
+    out = {}
+    for key, fn in (("warps", lambda: rest_warps(ab, ib, device)), ("brdf", lambda: rest_brdf(ab, ib, device)),
+                    ("renders", lambda: rest_renders(d, scenes, weights, images, device)),
+                    ("mcmc", lambda: rest_mcmc(d, device)), ("tabulated", lambda: rest_tabulated(d, device)),
+                    ("binary_bvh", lambda: rest_binary_bvh(d, scenes, scene.accel, scene.camera, device)),
+                    ("distributions", lambda: rest_distributions(device))):
+        t0 = time.time()
+        out[key] = fn()
+        out[key]["seconds"] = time.time() - t0
+    return out
+
+
 KERNELS = {
     "fused_sample_pdf_disk": ("K1 disk sample+pdf",
                               "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:579 _fused_sample_pdf_kernel "
@@ -2106,7 +2483,8 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    scenes = {"measured": write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=RENDER_SPP, max_depth=RENDER_DEPTH),
+    scenes = {"measured": write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=RENDER_SPP, max_depth=RENDER_DEPTH,
+                                      anisotropic=True),
               "table": write_scene(d, width=RENDER_RES, height=RENDER_RES, spp=TABLE_SPP, max_depth=RENDER_DEPTH,
                                    table=TABLE)}
     scene = load_scene(scenes["measured"], device=device)
@@ -2172,6 +2550,13 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         f"{len(MD_RENDERS)} renders against one process, disk and sphere_full training, the one-process resume: "
         f"ok ({multidevice['seconds']:.1f} s)")
 
+    t0 = time.time()
+    rest = rest_phase(d, scenes, weights, images, scene, device)
+    rest["seconds"] = time.time() - t0
+    log(f"[13] the rest: aniso warps and BRDF at n = {REST_N}, aniso renders at {REST_SPP} spp, MCMC on the aniso "
+        f"target, tabulated sampling and its native twin, the binary BVH against K5, the distributions: ok "
+        f"({rest['seconds']:.1f} s)")
+
     # launches: each kernel from the run of the path that runs it, counts
     # set to 0 just before: K1 from the neural-disk render, K4 from the
     # neural-spherical render, K3 from the neural-sphere render with the
@@ -2219,11 +2604,14 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                                   "none: the kernel draws no random numbers and its rows are independent")
         rows[-1]["launches_a_rank_2_ranks"] = {label: [r[k] for r in c["launches_a_rank"]]
                                                for label, c in multidevice["renders"].items()}
+        # the anisotropic material's renders (phase 13), each a 16-spp, depth-12 render
+        rows[-1]["launches_aniso_render"] = {mode: c[k] for mode, c in rest["renders"]["launches"].items()}
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
-    log(f"[13] total {time.time() - t_start:.1f} s")
+    log(f"[14] total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {"card": smi, **training}}))
     print(json.dumps({"differentiable": {"card": smi, **diff}}))
     print(json.dumps({"multidevice": {"card": smi, **multidevice}}))
+    print(json.dumps({"rest": {"card": smi, **rest}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -115,3 +115,17 @@ def hemisphere(rng: np.random.Generator, n: int) -> np.ndarray:
     st = np.sqrt(1.0 - ct * ct)
     phi = 2.0 * np.pi * u[:, 1]
     return np.stack([st * np.cos(phi), st * np.sin(phi), ct], axis=-1).astype(np.float32)
+
+
+def assert_mostly_close(a, b, rtol=1e-4, atol=1e-6, min_share=0.995, all_atol=2e-2):
+    """|a - b| <= atol + rtol |b| on at least `min_share` of the rows, and
+    every element within `all_atol` (None: no bound on every row). The share
+    allows for a 1-ulp difference that moves a bisection or an inverse-CDF
+    step across a cell boundary."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape
+    close = np.abs(a - b) <= atol + rtol * np.abs(b)
+    rows = close.reshape(len(a), -1).all(-1)
+    assert rows.mean() >= min_share, rows.mean()
+    if all_atol is not None:
+        assert np.abs(a - b).max() <= all_atol, np.abs(a - b).max()

@@ -17,11 +17,11 @@ import torch
 from bsdf_diffusion_sampling_tpu.bsdf import analytic as ja
 from bsdf_diffusion_sampling_tpu.data import mcmc as jm
 from bsdf_diffusion_sampling_tpu.utils import validation as jv
-from bsdf_diffusion_sampling_tpu.utils.reference_np import ggx_pdf_grid_np
 from bsdf_diffusion_sampling_tpu_torch.bsdf import analytic as ta
 from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
 from bsdf_diffusion_sampling_tpu_torch.data import mcmc as tm
 from bsdf_diffusion_sampling_tpu_torch.utils import validation as tv
+from bsdf_diffusion_sampling_tpu_torch.utils.reference_np import ggx_pdf_grid_np
 
 from _torch_port import tt
 
@@ -116,7 +116,7 @@ def test_ensemble_meets_ggx_pdf_grid():
         return torch.where(f > 0, torch.log(torch.clamp(f, min=1e-38)), -math.inf)
 
     lo, hi = (-1.0, -1.0), (1.0, 1.0)
-    centres = tv.pdf_grid_2d(density, lo, hi, bins=RES)
+    centres = tv.pdf_grid_2d(density, lo, hi, bins=RES, device="cpu")
     ref = ggx_pdf_grid_np(OMEGA_I.astype(np.float64), 0.4, res=RES)
     np.testing.assert_allclose(centres / centres.sum(), ref / ref.sum(), rtol=1e-5, atol=1e-7)
     g = root_generator(3, "cpu")
@@ -124,7 +124,7 @@ def test_ensemble_meets_ggx_pdf_grid():
     chain, acc = tm.ensemble_mcmc(g, log_prob, x0, nsteps=2500, burn_in=500)
     assert 0.1 < float(acc) < 0.9
     hist = tv.histogram_grid_2d(chain.reshape(-1, 2).numpy(), lo, hi, bins=RES)
-    kl = tv.kl_divergence_grid(hist, tv.pdf_grid_2d(density, lo, hi, bins=RES, sub=8))
+    kl = tv.kl_divergence_grid(hist, tv.pdf_grid_2d(density, lo, hi, bins=RES, device="cpu", sub=8))
     assert kl < 0.05, kl
 
 
@@ -168,7 +168,7 @@ def test_validation_matches_jax():
     lo, hi = (-1.0, -1.0), (1.0, 1.0)
     h = tv.histogram_grid_2d(s, lo, hi, bins=16)
     np.testing.assert_array_equal(h, jv.histogram_grid_2d(s, lo, hi, bins=16))
-    grid_t = tv.pdf_grid_2d(lambda p: torch.exp(-(p**2).sum(-1)), lo, hi, bins=16)
+    grid_t = tv.pdf_grid_2d(lambda p: torch.exp(-(p**2).sum(-1)), lo, hi, bins=16, device="cpu")
     grid_j = jv.pdf_grid_2d(lambda p: jnp.exp(-(p**2).sum(-1)), lo, hi, bins=16)
     np.testing.assert_allclose(grid_t, grid_j, rtol=1e-6)
     assert tv.kl_divergence_grid(h, grid_t) == pytest.approx(jv.kl_divergence_grid(h, grid_j), rel=1e-6)

@@ -23,20 +23,9 @@ from bsdf_diffusion_sampling_tpu_torch.bsdf import marginal2d as tm2
 from bsdf_diffusion_sampling_tpu_torch.bsdf import measured as tme
 from bsdf_diffusion_sampling_tpu_torch.bsdf.tensorfile import read_tensor_file, write_tensor_file
 
-from _torch_port import hemisphere, tt, write_synthetic_bsdf
+from _torch_port import assert_mostly_close, hemisphere, tt, write_synthetic_bsdf
 
-RTOL, ATOL, MIN_SHARE, ALL_ATOL = 1e-4, 1e-6, 0.995, 2e-2
 N = 4096
-
-
-def assert_mostly_close(a, b, all_atol=ALL_ATOL):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    assert a.shape == b.shape
-    close = np.abs(a - b) <= ATOL + RTOL * np.abs(b)
-    rows = close.reshape(len(a), -1).all(-1)
-    assert rows.mean() >= MIN_SHARE, rows.mean()
-    if all_atol is not None:
-        assert np.abs(a - b).max() <= all_atol, np.abs(a - b).max()
 
 
 @pytest.fixture(scope="module")
@@ -111,13 +100,20 @@ def _dirs(seed):
     return wi, wo
 
 
-def test_load_measured(brdfs):
+def test_load_measured(brdfs, tmp_path):
     jb, tb = brdfs
     assert tb.name == "synth_rgb"
+    assert tb.phi_i_grid is None and tb.vndf.params_phi is None
     np.testing.assert_array_equal(tb.rgb.numpy(), np.asarray(jb.rgb))
     np.testing.assert_array_equal(tb.vndf.cond_cdf.numpy(), np.asarray(jb.vndf.cond_cdf))
-    with pytest.raises(NotImplementedError):
-        tme.measured_from_tensors({"phi_i": np.zeros(2), "theta_i": np.zeros(2)}, device="cpu")
+    # an anisotropic file loads, with the file's phi_i grid
+    path = str(tmp_path / "aniso.bsdf")
+    tf = write_synthetic_bsdf(path, seed=1, vndf_res=(16, 16), lum_res=(8, 8), sigma_w=16, n_phi=3)
+    ab = tme.load_measured(path, device="cpu")
+    assert isinstance(ab, tme.MeasuredBRDF) and ab.name == "aniso"
+    np.testing.assert_array_equal(ab.phi_i_grid.numpy(), tf["phi_i"])
+    np.testing.assert_array_equal(ab.vndf.params_phi.numpy(), tf["phi_i"])
+    assert ab.rgb.shape == (3 * 8, 3, 8, 8)
 
 
 def test_eval_pdf_match_jax(brdfs):

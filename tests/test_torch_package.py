@@ -35,6 +35,9 @@ DIFF_REFERENCE_ZOO_SLICE = ["ops.fused_ode", "ode.flow", "interop.jax_params", "
                             "cli.import_reference", "cli.render", "models.zoo"]
 MULTI_DEVICE_SLICE = ["core.tree", "parallel", "parallel.mesh", "parallel.distributed", "render.integrator",
                       "train.stages", "cli.train"]
+REST_SLICE = ["bsdf.marginal2d", "bsdf.measured", "render.procedural", "data.tabulated", "native.samplewilib",
+              "render.bvh", "render.scene", "utils", "utils.reference_np", "utils.distributions1d", "utils.plots",
+              "ops.cuda_build"]
 
 
 def test_import_pulls_in_no_jax():
@@ -44,7 +47,7 @@ def test_import_pulls_in_no_jax():
             "    importlib.import_module(m.name)\n"
             "    seen.append(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "       or m.split('.')[0] == 'bsdf_diffusion_sampling_tpu']\n"
+            "       or m.split('.')[0] in ('bsdf_diffusion_sampling_tpu', 'matplotlib')]\n"
             "print(sorted(bad))\n"
             "print(' '.join(seen))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -52,11 +55,11 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=120, check=True)
     bad, seen = out.stdout.strip().splitlines()
     assert bad == "[]", bad
-    # the render, spherical, training, differentiable/reference/zoo and multi-device slices' modules are among
-    # those imported
+    # the render, spherical, training, differentiable/reference/zoo, multi-device and last slices' modules are
+    # among those imported; matplotlib is not (utils.plots imports it when it draws)
     assert {f"bsdf_diffusion_sampling_tpu_torch.{m}"
             for m in RENDER_SLICE + SPHERICAL_SLICE + TRAIN_SLICE + DIFF_REFERENCE_ZOO_SLICE + MULTI_DEVICE_SLICE
-            } <= set(seen.split())
+            + REST_SLICE} <= set(seen.split())
 
 
 def test_parallel_exports_the_jax_package_names():
@@ -133,13 +136,14 @@ def test_make_neural_bsdf_defaults_to_the_card():
 
 @pytest.mark.parametrize("entry", ["load_measured", "measured_from_tensors", "load_scene", "build_scene",
                                    "render", "generate_brdf_dataset", "train_material", "cli.train",
-                                   "import_reference_material", "cli.import_reference"])
+                                   "import_reference_material", "cli.import_reference", "pdf_grid_2d",
+                                   "domain_grid"])
 def test_loaders_and_render_default_to_the_card(entry):
     """The BRDF and scene loaders, `render()`, the dataset generator, the
-    trainer, the training CLI and the reference importer and its CLI run on
-    the card unless asked for the CPU,
-    so what they return fits together; the default raises here, before any
-    file is read."""
+    trainer, the training CLI, the reference importer and its CLI, the pdf
+    grid of the validation metrics and the tabulated sampler's vertex grid
+    run on the card unless asked for the CPU, so what they return fits
+    together; the default raises here, before any file is read."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from bsdf_diffusion_sampling_tpu_torch.bsdf import measured
@@ -149,6 +153,8 @@ def test_loaders_and_render_default_to_the_card(entry):
     from bsdf_diffusion_sampling_tpu_torch.interop import import_reference_material
     from bsdf_diffusion_sampling_tpu_torch.render import integrator, scene
     from bsdf_diffusion_sampling_tpu_torch.train import stages
+    from bsdf_diffusion_sampling_tpu_torch.data import tabulated
+    from bsdf_diffusion_sampling_tpu_torch.utils import validation
 
     call = {"load_measured": lambda: measured.load_measured("absent.bsdf"),
             "measured_from_tensors": lambda: measured.measured_from_tensors({"phi_i": [0.0], "theta_i": [0.0]}),
@@ -160,7 +166,9 @@ def test_loaders_and_render_default_to_the_card(entry):
             "cli.train": lambda: train_cli.main(["--material", "ggx:0.5", "--out", "absent"]),
             "import_reference_material": lambda: import_reference_material("absent", "m", "disk"),
             "cli.import_reference": lambda: import_reference.main(["--checkpoints-root", "absent", "--material", "m",
-                                                                   "--domain", "disk", "--out", "absent.npz"])}[entry]
+                                                                   "--domain", "disk", "--out", "absent.npz"]),
+            "pdf_grid_2d": lambda: validation.pdf_grid_2d(lambda p: p[:, 0], (0.0, 0.0), (1.0, 1.0), bins=4),
+            "domain_grid": lambda: tabulated.domain_grid("disk", 4)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
 

@@ -6,3 +6,5 @@ each Pallas kernel of the reference is a CUDA kernel under `csrc/`, built
 at first use. Entry points run on the card unless the caller asks for the
 CPU, where each kernel's plain PyTorch version stands in for it.
 """
+
+from bsdf_diffusion_sampling_tpu_torch.core import config  # noqa: F401

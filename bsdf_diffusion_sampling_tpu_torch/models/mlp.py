@@ -44,3 +44,14 @@ def mlp_apply(params: List[dict], x: torch.Tensor, activation=F.silu) -> torch.T
 
 def mlp_dims(params: List[dict]) -> List[int]:
     return [params[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in params]
+
+
+def flatten_mlp(params: List[dict]) -> torch.Tensor:
+    """All weights in one flat vector, layer by layer: w (row-major), then b
+    where the layer has one."""
+    leaves = []
+    for layer in params:
+        leaves.append(layer["w"].reshape(-1))
+        if "b" in layer:
+            leaves.append(layer["b"].reshape(-1))
+    return torch.cat(leaves)

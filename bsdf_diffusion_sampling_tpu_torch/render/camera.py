@@ -4,8 +4,8 @@
 Perspective lookat camera with fov on the smaller axis, and a gaussian
 reconstruction filter applied by filter importance sampling: pixel offsets
 are drawn from a truncated gaussian (stddev 0.5, radius 2), so every
-sample splats with weight 1 and the film is a plain average. Draws take
-explicit uniforms.
+sample splats with weight 1 and the film is a plain average
+(`accumulate_film`). Draws take explicit uniforms.
 """
 
 from __future__ import annotations
@@ -79,3 +79,15 @@ def generate_rays(cam_vectors: torch.Tensor, width: int, height: int, u: torch.T
     d = forward[None, :] + sx[:, None] * right[None, :] - sy[:, None] * up[None, :]
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     return origin.expand_as(d), d, px
+
+
+def accumulate_film(pixel_index: torch.Tensor, radiance: torch.Tensor, width: int,
+                    height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment-sum samples into an (H, W, 3) film and (H, W) per-pixel
+    counts, on the samples' device. The integrator sums its film without
+    a scatter; this is the general form, for samples in any pixel order."""
+    idx = pixel_index.long()
+    img = torch.zeros(width * height, 3, dtype=radiance.dtype, device=radiance.device).index_add_(0, idx, radiance)
+    cnt = torch.zeros(width * height, dtype=torch.float32, device=radiance.device).index_add_(
+        0, idx, torch.ones(idx.shape[0], dtype=torch.float32, device=radiance.device))
+    return img.reshape(height, width, 3), cnt.reshape(height, width)

@@ -10,6 +10,11 @@ triangles, the matpreview scene's size (61.6k). The matball's hook names
 the measured BRDF (`scene_measured.xml`), or, with `table=`, a material-
 table index and an albedo tint as `scene_bsdf.xml` does (no `.bsdf` file
 then).
+
+`write_array_scene` writes the other dialect the renderer reads, that of
+the reference's 12-ball array scenes (version 0.5.0: camelCase property
+names, an inline `mybsdf` hook in each ball's shape, a point light or an
+envmap): a grid of balls on the ground plane, each its own matball slot.
 """
 
 from __future__ import annotations
@@ -218,4 +223,126 @@ def write_scene(directory: str, *, n_lat: int = 150, n_lon: int = 200, plane_g: 
     path = os.path.join(directory, "scene_measured.xml" if table is None else "scene_bsdf.xml")
     with open(path, "w") as f:
         f.write(_xml(width, height, spp, max_depth, lights, table))
+    return path
+
+
+# The array scenes: 12 balls in 3 rows of 4. Measured balls get their own
+# synthesized .bsdf file (seed i); table balls are material-table entries
+# with an albedo tint, as the reference's array2 scene's are.
+ARRAY_MATERIALS = tuple(f"synthetic_{i:02d}_rgb" for i in range(12))
+ARRAY_TABLE = tuple(zip(range(0, 24, 2), ((0.8, 0.3, 0.3), (0.3, 0.8, 0.3), (0.3, 0.3, 0.8), (0.8, 0.8, 0.3),
+                                          (0.8, 0.3, 0.8), (0.3, 0.8, 0.8), (0.9, 0.6, 0.3), (0.6, 0.3, 0.9),
+                                          (0.3, 0.9, 0.6), (0.7, 0.7, 0.7), (0.9, 0.5, 0.5), (0.5, 0.5, 0.9))))
+ARRAY_SPACING, ARRAY_RADIUS, ARRAY_COLS = 1.2, 0.5, 4
+ARRAY_LIGHT = (0.0, 4.0, 5.0, 200.0, 200.0, 200.0)  # the reference's array0_pointlight emitter
+
+
+def _array_hook(ball) -> str:
+    if isinstance(ball, str):
+        return f'<string name="filename" value="{ball}"/>'
+    idx, albedo = ball
+    return (f'<integer name="idx" value="{idx}"/>\n'
+            f'            <vector name="albedo" value="{", ".join(map(str, albedo))}"/>')
+
+
+def _array_xml(balls, width: int, height: int, spp: int, max_depth: int, point_light) -> str:
+    cols = min(ARRAY_COLS, len(balls))
+    rows = -(-len(balls) // cols)
+    shapes = []
+    for i, ball in enumerate(balls):
+        x = (i % cols - (cols - 1) / 2) * ARRAY_SPACING
+        z = (i // cols - (rows - 1) / 2) * ARRAY_SPACING
+        r = ARRAY_RADIUS
+        shapes.append(f"""    <shape type="serialized">
+        <string name="filename" value="array.serialized"/>
+        <integer name="shapeIndex" value="1"/>
+        <transform name="toWorld">
+            <scale x="{r}" y="{r}" z="{r}"/>
+            <translate x="{x}" y="{r}" z="{z}"/>
+        </transform>
+        <bsdf type="mybsdf">
+            {_array_hook(ball)}
+        </bsdf>
+    </shape>
+""")
+    if point_light is None:
+        emitter = """    <emitter type="envmap">
+        <string name="filename" value="envmap.exr"/>
+        <transform name="toWorld">
+            <rotate y="1" angle="-90"/>
+        </transform>
+        <float name="scale" value="1.0"/>
+    </emitter>
+"""
+    else:
+        p = point_light
+        emitter = (f'    <emitter type="point">\n        <point name="position" value="{p[0]}, {p[1]}, {p[2]}"/>\n'
+                   f'        <rgb name="intensity" value="{p[3]}, {p[4]}, {p[5]}"/>\n    </emitter>\n')
+    return f"""<scene version="0.5.0">
+    <default name="spp" value="{spp}"/>
+    <default name="width" value="{width}"/>
+    <default name="height" value="{height}"/>
+    <integrator type="path">
+        <integer name="maxDepth" value="{max_depth}"/>
+    </integrator>
+    <sensor type="perspective">
+        <string name="fovAxis" value="smaller"/>
+        <float name="fov" value="40"/>
+        <transform name="toWorld">
+            <lookat origin="0, 4.5, 7.5" target="0, 0.3, 0" up="0, 1, 0"/>
+        </transform>
+        <sampler type="independent">
+            <integer name="sampleCount" value="$spp"/>
+        </sampler>
+        <film type="hdrfilm">
+            <integer name="width" value="$width"/>
+            <integer name="height" value="$height"/>
+        </film>
+    </sensor>
+{emitter}    <texture type="checkerboard" id="checks">
+        <rgb name="color0" value="0.4"/>
+        <rgb name="color1" value="0.2"/>
+    </texture>
+    <bsdf type="diffuse" id="plane_mat">
+        <ref name="reflectance" id="checks"/>
+    </bsdf>
+    <shape type="serialized">
+        <string name="filename" value="array.serialized"/>
+        <integer name="shapeIndex" value="0"/>
+        <transform name="toWorld">
+            <scale x="1" y="1" z="1"/>
+        </transform>
+        <ref id="plane_mat"/>
+    </shape>
+{"".join(shapes)}</scene>
+"""
+
+
+def write_array_scene(directory: str, *, kind: str = "measured", balls=None, n_lat: int = 64, n_lon: int = 128,
+                      plane_g: int = 32, env_res=(128, 256), width: int = 512, height: int = 512, spp: int = 16,
+                      max_depth: int = 12, point_light=None) -> str:
+    """Write an array scene into `directory` and return the XML's path,
+    `scene_array_<kind>.xml`. `kind="measured"`: the 12 balls are the
+    measured BRDFs `ARRAY_MATERIALS`, each written to
+    `<directory>/<name>.bsdf` from `synthetic_measured_tensors(seed=i)`;
+    `kind="table"`: the material-table entries and albedos `ARRAY_TABLE`.
+    `balls` replaces the kind's list (`kind` then only names the file): a
+    measured ball is its name (str), written from seed = its position; a
+    table ball is (idx, albedo). The balls (radius 0.5) stand in rows of 4
+    on the ground plane, in order. The scene is lit by the sky envmap, or,
+    with `point_light` = (x, y, z, r, g, b) (e.g. `ARRAY_LIGHT`), by that
+    point light alone."""
+    if balls is None:
+        balls = {"measured": ARRAY_MATERIALS, "table": ARRAY_TABLE}[kind]
+    os.makedirs(directory, exist_ok=True)
+    write_serialized(os.path.join(directory, "array.serialized"),
+                     [plane_grid(plane_g, 6.0), uv_sphere(n_lat, n_lon)])
+    if point_light is None:
+        write_exr(os.path.join(directory, "envmap.exr"), sky_envmap(*env_res))
+    for i, ball in enumerate(balls):
+        if isinstance(ball, str):
+            write_tensor_file(os.path.join(directory, f"{ball}.bsdf"), synthetic_measured_tensors(seed=i))
+    path = os.path.join(directory, f"scene_array_{kind}.xml")
+    with open(path, "w") as f:
+        f.write(_array_xml(list(balls), width, height, spp, max_depth, point_light))
     return path

@@ -117,6 +117,14 @@ def load_pytree(path: str):
     return _listify(root), step
 
 
+def latest_step(path: str) -> int:
+    """The step stored in a checkpoint file (`__step__`), or -1 if absent."""
+    if not os.path.exists(path):
+        return -1
+    with np.load(path) as data:
+        return int(data["__step__"])
+
+
 def save_train_state(path: str, params: Any, optimizer: torch.optim.Adam, step: int) -> None:
     """Write (params, Adam state, step) as the JAX package's
     `TrainState(params, optax.adam(...).init(params), step)` is written."""

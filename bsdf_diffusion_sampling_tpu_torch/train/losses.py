@@ -18,6 +18,7 @@ from typing import List
 
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.geometry.coords import shortest_arc_delta
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import BaseDensity
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import velocity_apply
@@ -43,6 +44,7 @@ def flow_matching_mse(domain: str, v_params: List[dict], x0: torch.Tensor, x1: t
     return ((pred - v_target) ** 2).mean()
 
 
-def linspace_alpha(n: int, device="cpu") -> torch.Tensor:
-    """The stratified alpha grid, shape (n, 1), float32."""
-    return torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=device).reshape(-1, 1)
+def linspace_alpha(n: int, device="cuda") -> torch.Tensor:
+    """The stratified alpha grid, shape (n, 1), float32, on `device` (the
+    card by default; pass device="cpu" for the CPU)."""
+    return torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=resolve_device(device)).reshape(-1, 1)

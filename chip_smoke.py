@@ -112,10 +112,29 @@ Phases, each of which raises on failure:
      against K5 on phase 6's four ray sets at 2^20 rays (flags equal, t
      within 1e-5, shared-edge ties counted), timed beside K5; (g) 2^20
      draws of each `distributions1d` family on the card (KS < 5e-3);
-  14. print the `training` line, the `differentiable` line, the
-     `multidevice` line, the `rest` line, the card's line, the `kernels`
-     line (each kernel's row-offset status and its launches in the
-     anisotropic renders beside its numbers) and the `ok` line.
+  14. (a) trained quality: `cli/train.py` on the phase-5 measured BRDF
+     (disk) at the CLI's widths and batches, MCMC 10 bands x 50 walkers
+     x 20,000 sweeps, 2,000 / 5,000 / 500 iterations; at omega_i radii
+     0.1, 0.4, 0.7 and 0.9, 2^20 draws through K1 against the oracle (the MCMC's target) and
+     against the learned pdf grid from K2 (48 x 48 cells over [-1, 1]^2,
+     each the mean of 4 x 4 points): mean KL against the oracle < 0.5 and
+     at most half the base density's, the consistency KL < 0.05 at every
+     radius; the same KLs for the base density and phase 10's checkpoint;
+     both checkpoints rendered through `cli/render.py` (neural-disk, 64
+     spp, depth 12) against phase 8's gt and a gt of another seed: the
+     trained relMSE below phase 10's, its mean radiance within 10% of gt;
+     (b) the 12-ball array scenes (`write_array_scene`, the version-0.5.0
+     dialect) at 512 x 512, 16 spp, depth 12: the measured array under the
+     envmap in gt and neural-disk with reference-layout weights (K1 12
+     times a bounce, K5 twice), the table array under a point light in gt
+     and neural-sphere with K3's pdf (K4 12 and K3 24 times a bounce, K5
+     three times); every ball seen and not black; each ball's share of
+     the wavefront's rays at depths 0 and 1;
+  15. print the `training` line, the `differentiable` line, the
+     `multidevice` line, the `rest` line, the `quality` line, the `arrays`
+     line, the card's line, the `kernels` line (each kernel's row-offset
+     status and its launches in the anisotropic, trained-quality and array
+     runs beside its numbers) and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -156,7 +175,7 @@ from bsdf_diffusion_sampling_tpu_torch.data.mcmc import ensemble_mcmc, make_doma
 from bsdf_diffusion_sampling_tpu_torch.data.tabulated import build_tabulated, domain_grid, online_sampling, sample_tabulated
 from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
-from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc
+from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc, get_base
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
 from bsdf_diffusion_sampling_tpu_torch.models.zoo import gmm_disk_base, mixture_spherical_base, unet_apply, unet_init
 from bsdf_diffusion_sampling_tpu_torch.native.samplewilib import samplewi_native
@@ -173,6 +192,7 @@ from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
 from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
     _bounce_body,
     _init_wavefront,
+    _isect,
     _ray_sort_key,
     _sort_perm,
     draw_bounce,
@@ -185,15 +205,26 @@ from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, ne
 from bsdf_diffusion_sampling_tpu_torch.render.procedural import (
     ANISO_MATERIAL,
     ANISO_PHI,
+    ARRAY_LIGHT,
+    ARRAY_MATERIALS,
+    ARRAY_TABLE,
     TABLE,
     synthetic_measured_tensors,
+    write_array_scene,
     write_scene,
 )
 from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, load_scene
 from bsdf_diffusion_sampling_tpu_torch.train import stages
 from bsdf_diffusion_sampling_tpu_torch.train.checkpoint import load_pytree, save_pytree
 from bsdf_diffusion_sampling_tpu_torch.utils import distributions1d as dists
-from bsdf_diffusion_sampling_tpu_torch.utils.validation import histogram_grid_2d, kl_divergence_grid, pdf_grid_2d
+from bsdf_diffusion_sampling_tpu_torch.utils.validation import (
+    histogram_grid_2d,
+    image_mse,
+    kl_divergence_grid,
+    pdf_grid_2d,
+    relative_mse,
+    sampler_vs_pdf_kl,
+)
 
 N_MAIN = 1 << 20  # the wavefront of the main path, the checks and the timings
 N_RAGGED = N_MAIN - 37  # a size whose last block of 128 threads is partly masked
@@ -934,10 +965,11 @@ def counted(fn):
 
 
 def check_render(label: str, img, dt: float, spp: int, counts: dict, depth: int = RENDER_DEPTH,
-                 mode: str | None = None) -> dict:
+                 mode: str | None = None, want: dict | None = None) -> dict:
     """Gates of a render: finite, not black, and each kernel's launches a
     bounce as EXPECTED has them for `mode` (the label's second word by
-    default)."""
+    default), or as `want` has them (K5 exactly, where it names
+    "traverse8")."""
     bounces = (spp // RENDER_CHUNK) * depth
     r = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * spp / dt / 1e6, "spp": spp,
          "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
@@ -945,7 +977,10 @@ def check_render(label: str, img, dt: float, spp: int, counts: dict, depth: int 
     require(bool(np.isfinite(img).all()) and img.max() > 0, f"render {label}: non-finite or black image")
     require(counts["traverse8"] >= 2 * bounces, f"render {label}: K5 launched {counts['traverse8']} times "
             f"in {bounces} bounces")
-    want = EXPECTED[mode or label.split(" ", 1)[1]]
+    want = EXPECTED[mode or label.split(" ", 1)[1]] if want is None else want
+    require("traverse8" not in want or counts["traverse8"] == want["traverse8"] * bounces,
+            f"render {label}: K5 launched {counts['traverse8']} times in {bounces} bounces, expected "
+            f"{want.get('traverse8')} a bounce")
     for k in fo.launches:
         require(counts[k] == want.get(k, 0) * bounces,
                 f"render {label}: {k} launched {counts[k]} times in {bounces} bounces, "
@@ -2309,6 +2344,260 @@ def rest_phase(d: str, scenes: dict, weights: dict, images: dict, scene, device)
     return out
 
 
+# ----------------------------------------- trained quality, array scenes ----
+
+# Phase 14a: the procedural measured BRDF's disk sampler trained far enough
+# to be judged (`cli/train.py` at the CLI's widths and batches), its draws
+# through K1 and its pdf through K2 against the oracle: the density the MCMC
+# samples (`make_domain_log_prob` on the measured BRDF), at four incident
+# radii on the disk. Both pdf grids average each cell over QUALITY_SUB^2
+# points, so a sharp lobe's cell integral, not its centre value, faces the
+# histogram (the JAX package's benchmarks/quality_eval.py
+# `kl_hist_vs_oracle` takes centre values). The dataset is the CLI's MCMC at
+# QUALITY_MCMC_STEPS sweeps (10M rows, half the CLI's default), not phase
+# 10's 1M-row cache (2,000 sweeps), which is too small for the gate of half
+# the base density's KL: trained on it at 2,000 / 4,000 / 500 iterations on
+# an H100, the sampler's mean KL against the oracle was 0.62 of the base's.
+QUALITY_MCMC_STEPS = 20_000
+QUALITY_ITERS = {"pretrain": 2000, "diffusion": 5000, "rectify": 500}
+QUALITY_RADII = (0.1, 0.4, 0.7, 0.9)
+QUALITY_DRAWS = 1 << 20
+QUALITY_BINS, QUALITY_SUB = 48, 4
+QUALITY_SPP = 64  # the renders against GT: phase 8's measured scene, 512 x 512, depth 12
+QUALITY_RENDER_SEED = 2  # the neural renders' seed; GT seed A is phase 8's (seed 0), seed B is 1
+GATE_KL_ORACLE, GATE_KL_CONSISTENCY, GATE_RADIANCE = 0.5, 0.05, (0.9, 1.1)
+
+
+def quality_argv(d: str) -> list:
+    argv = train_argv(d, os.path.join(d, "quality_disk"), "disk", "synthetic_rgb", QUALITY_ITERS["rectify"])
+    for flag, v in (("--mcmc-steps", QUALITY_MCMC_STEPS), ("--iters-pretrain", QUALITY_ITERS["pretrain"]),
+                    ("--iters-diffusion", QUALITY_ITERS["diffusion"]), ("--save-every", 1000), ("--log-every", 100)):
+        argv[argv.index(flag) + 1] = str(v)
+    return argv
+
+
+def sampler_kls(tree: dict, oracle_log_prob, device, base_only: bool = False) -> dict:
+    """At each radius of QUALITY_RADII (omega_i = (r, 0)): QUALITY_DRAWS
+    draws of the rectified sampler (K1, T = 4) or of the base density alone,
+    KL(histogram of the draws inside the disk || oracle grid) and KL(histogram
+    of all draws || the learned pdf grid: K2, exact, or the base's own pdf)."""
+    cfg = ModelConfig()
+    nb = make_neural_bsdf("disk", cfg, tree["rectified"], tree["base"], device=device)
+    base = get_base("disk")
+    lo, hi, grid = (-1.0, -1.0), (1.0, 1.0), dict(bins=QUALITY_BINS, device=device, sub=QUALITY_SUB)
+    rows = []
+    for i, r in enumerate(QUALITY_RADII):
+        wi = torch.tensor([[r, 0.0]], device=device)
+        wi_n = wi.expand(QUALITY_DRAWS, 2)
+
+        def at(p):
+            return wi.expand(p.shape[0], 2)
+
+        if base_only:
+            x = base.sample(nb.base_params, wi_n, root_generator(SEED + 60 + i, device))
+
+            def learned(p):
+                return torch.exp(base.log_prob(nb.base_params, p, at(p)))
+        else:
+            x, _, _ = fo.fused_sample_pdf_disk(nb.packed, encode_condition(wi_n, cfg), nb.T, seed=SEED + 60 + i)
+
+            def learned(p):
+                return fo.fused_pdf_disk(nb.packed, p.contiguous(), encode_condition(at(p), cfg), nb.T, exact=True)[0]
+
+        x = x.cpu().numpy()
+        inside = (x.astype(np.float64) ** 2).sum(-1) < 1.0
+        row = {"r": r, "inside": float(inside.mean()), "finite": bool(np.isfinite(x).all()),
+               "kl_oracle": sampler_vs_pdf_kl(x[inside], lambda p: torch.exp(oracle_log_prob(
+                   torch.cat([at(p), p], -1), 0.0, 1.0)), lo, hi, **grid),
+               "kl_consistency": sampler_vs_pdf_kl(x, learned, lo, hi, **grid)}
+        rows.append(row)
+    out = {"rows": rows, "mean_kl_oracle": float(np.mean([r["kl_oracle"] for r in rows])),
+           "max_kl_consistency": max(r["kl_consistency"] for r in rows)}
+    require(all(r["finite"] and math.isfinite(r["kl_oracle"]) and math.isfinite(r["kl_consistency"]) for r in rows),
+            f"quality: a draw or a KL is not finite: {rows}")
+    return out
+
+
+def quality_phase(d: str, scenes: dict, images: dict, device) -> dict:
+    """Phase 14a: train, then the KLs of the trained sampler, its base
+    density and phase 10's 30-iteration checkpoint, and neural-disk renders
+    of both checkpoints against GT."""
+    out_dir = os.path.join(d, "quality_disk")
+    t0 = time.time()
+    run = train_run(quality_argv(d))
+    out = {"train_seconds": time.time() - t0, "iterations": QUALITY_ITERS, "mcmc_sweeps": QUALITY_MCMC_STEPS,
+           "run": check_run(run, "disk", QUALITY_ITERS["rectify"], resumed=False)}
+    out["ms_an_iteration"] = {k: v["ms_median"] for k, v in out["run"]["stages"].items()}
+    log(f"  trained {QUALITY_ITERS} in {out['train_seconds']:.1f} s: ms an iteration {out['ms_an_iteration']}")
+
+    args = train_cli.build_parser().parse_args(["--material", "synthetic_rgb", "--bsdf-dir", d])
+    oracle_log_prob = make_domain_log_prob(train_cli.make_target_pdf(args, device), "disk")
+    ckpts = {"trained": os.path.join(out_dir, "final.npz"), "phase 10": os.path.join(d, "train_disk", "final.npz")}
+    trees = {k: load_pytree(p)[0] for k, p in ckpts.items()}
+    with torch.no_grad():
+        kls, counts = counted(lambda: sampler_kls(trees["trained"], oracle_log_prob, device))
+        out["kl"] = {"trained": kls, "base (trained pretrain)": sampler_kls(trees["trained"], oracle_log_prob, device,
+                                                                            base_only=True),
+                     "phase 10": sampler_kls(trees["phase 10"], oracle_log_prob, device)}
+    out["kl_launches"] = counts
+    log(f"  KLs (bins {QUALITY_BINS}, sub {QUALITY_SUB}, {QUALITY_DRAWS} draws a radius): "
+        f"{json.dumps(out['kl'])}; launches {counts}")
+    require(counts["fused_sample_pdf_disk"] == len(QUALITY_RADII) and counts["fused_pdf_disk"] == len(QUALITY_RADII),
+            f"quality: K1 and K2 launched {counts}, expected {len(QUALITY_RADII)} each")
+
+    def cli(mode, seed, checkpoint, label):
+        return render_cli.main(["--scene", scenes["measured"], "--bsdf-dir", d, "--material", "synthetic_rgb",
+                                "--mode", mode, "--checkpoint", checkpoint, "--spp", str(QUALITY_SPP),
+                                "--spp-chunk", str(RENDER_CHUNK), "--max-depth", str(RENDER_DEPTH), "--width",
+                                str(RENDER_RES), "--height", str(RENDER_RES), "--seed", str(seed), "--device",
+                                str(device), "--out", os.path.join(d, f"quality_{label}")])
+
+    gt_a = images["measured gt"][0]
+    imgs, out["renders"] = {"gt seed A": gt_a}, {}
+    for label, mode, seed, ckpt in (("trained", "neural-disk", QUALITY_RENDER_SEED, ckpts["trained"]),
+                                    ("phase 10", "neural-disk", QUALITY_RENDER_SEED, ckpts["phase 10"]),
+                                    ("gt seed B", "gt", 1, "")):
+        (img, dt), counts = counted(lambda: cli(mode, seed, ckpt, label.replace(" ", "_")))
+        r = check_render(f"quality {label}", img, dt, QUALITY_SPP, counts, mode=mode)
+        imgs[label] = img
+        out["renders"][label] = {k: r[k] for k in ("seconds", "mray_samples_per_s", "launches")}
+    for label, img in imgs.items():
+        out["renders"].setdefault(label, {}).update(
+            relmse_vs_gt_a=relative_mse(img, gt_a), mse_vs_gt_a=image_mse(img, gt_a),
+            mean_radiance_ratio=float(img.mean() / gt_a.mean()))
+    log(f"  renders against GT seed A ({QUALITY_SPP} spp): {json.dumps(out['renders'])}")
+
+    trained, base, p10 = out["kl"]["trained"], out["kl"]["base (trained pretrain)"], out["kl"]["phase 10"]
+    rend = out["renders"]
+    require(trained["mean_kl_oracle"] < GATE_KL_ORACLE and trained["mean_kl_oracle"] <= 0.5 * base["mean_kl_oracle"],
+            f"quality: mean KL against the oracle {trained['mean_kl_oracle']:.4f} (base {base['mean_kl_oracle']:.4f})")
+    require(trained["max_kl_consistency"] < GATE_KL_CONSISTENCY,
+            f"quality: consistency KL {trained['max_kl_consistency']:.4f} at some radius")
+    require(rend["trained"]["relmse_vs_gt_a"] < rend["phase 10"]["relmse_vs_gt_a"],
+            f"quality: the trained render's relMSE {rend['trained']['relmse_vs_gt_a']:.5f} is not below phase 10's "
+            f"{rend['phase 10']['relmse_vs_gt_a']:.5f}")
+    ratio = rend["trained"]["mean_radiance_ratio"]
+    require(GATE_RADIANCE[0] <= ratio <= GATE_RADIANCE[1], f"quality: mean radiance ratio {ratio:.4f} to GT")
+    require(all(math.isfinite(v) for r in rend.values() for v in (r["relmse_vs_gt_a"], r["mse_vs_gt_a"])),
+            "quality: an image error is not finite")
+    return out
+
+
+# Phase 14b: the 12-ball array scenes (`write_array_scene`) at 512 x 512,
+# depth 12: the measured array under the sky envmap (gt, and neural-disk
+# with 12 reference-layout checkpoints: K1 12 times a bounce), the table
+# array under one point light (gt, and neural-sphere with K3's
+# reverse-Euler pdf through render(): K4 12 and K3 24 times a bounce). The
+# neural-sphere with the exact pdf is left out on purpose: its plain exact
+# spherical pdf costs ~0.35 s a ball a bounce at 2^20 rays, minutes for 12
+# balls over 48 bounces. Each matball runs on the whole wavefront; the
+# share of the rays that hit each ball is printed at depths 0 and 1.
+ARRAY_SPP = 16
+ARRAY_WANT = {"measured gt": {"traverse8": 2}, "measured neural-disk": {"traverse8": 2, "fused_sample_pdf_disk": 12},
+              "table gt": {"traverse8": 3},
+              "table neural-sphere K3": {"traverse8": 3, "fused_sample_pdf_spherical": 12, "fused_transport": 24}}
+
+
+def write_disk_references(root: str, materials, seed: int) -> None:
+    """The reference's disk checkpoint directory of each material, as
+    `write_reference_checkpoints` writes REF_MATERIAL's."""
+    rng = np.random.default_rng(seed)
+    disk = [25] + [32] * 3 + [2]
+    for m in materials:
+        os.makedirs(os.path.join(root, f"{m}_disk"), exist_ok=True)
+        for stage, dims in (("pretrain", [14, 16, 4]), ("diffusion", disk), ("rectify", disk)):
+            pre = stage == "pretrain"
+            torch.save(reference_state_dict(rng, dims, bias=pre, scale=1.0 if pre else 0.5),
+                       os.path.join(root, f"{m}_disk", f"brdf_{stage}_network{m}.pth"))
+
+
+def ball_shares(scene, mbs: tuple, device) -> dict:
+    """The share of the 2^20-ray wavefront (512 x 512 x 4) whose closest hit
+    is each ball, for the camera rays (depth 0) and after one bounce (depth
+    1), and the share of rays alive."""
+    n = RENDER_RES * RENDER_RES * RENDER_CHUNK
+    gen = root_generator(SEED + 70, device)
+    state = _init_wavefront(scene.camera.vectors.to(device), torch.rand((n, 2), generator=gen, device=device)
+                            * (1 - 1e-7) + 1e-7, width=RENDER_RES, height=RENDER_RES, spp_chunk=RENDER_CHUNK)
+    out = {}
+    for depth in (0, 1):
+        if depth:
+            state, _ = _bounce_body(scene.accel, scene.envmap, scene.lights, state, draw_bounce(gen, n, mbs), 0,
+                                    matball=mbs)
+        alive = state[5]
+        h = _isect(scene.accel, state[0], state[1], alive)
+        mat = torch.where(alive & (h.t < 1e29), scene.accel.attr_rows[h.prim, 15].to(torch.int64), -1)
+        counts = torch.bincount(mat + 1, minlength=MAT_BALL + len(mbs) + 1).cpu().numpy()
+        out[f"depth {depth}"] = {"alive": float(alive.float().mean()),
+                                 "balls": [float(c) / n for c in counts[MAT_BALL + 1:MAT_BALL + 1 + len(mbs)]]}
+    return out
+
+
+def array_phase(d: str, weights: dict, device) -> dict:
+    """Phase 14b: the two 12-ball arrays' renders, launches, per-ball pixels
+    and ray shares."""
+    film = dict(width=RENDER_RES, height=RENDER_RES, spp=ARRAY_SPP, max_depth=RENDER_DEPTH)
+    paths = {"measured": write_array_scene(os.path.join(d, "array_measured"), kind="measured", **film),
+             "table": write_array_scene(os.path.join(d, "array_table"), kind="table", point_light=ARRAY_LIGHT, **film)}
+    ref_root = os.path.join(d, "array_checkpoints")
+    write_disk_references(ref_root, ARRAY_MATERIALS, SEED + 71)
+    scenes = {k: load_scene(p, device=device) for k, p in paths.items()}
+    out = {k: {"triangles": int(sc.accel.attr_rows.shape[0]), "balls": len(sc.desc.matballs),
+               "point_lights": int(sc.lights.shape[0]), "packed_bytes": int(sc.accel.packed_bytes)}
+           for k, sc in scenes.items()}
+    log(f"  array scenes: {out}")
+
+    def cli(scene, mode, spp, depth, extra=()):
+        return render_cli.main(["--scene", paths[scene], "--bsdf-dir", os.path.dirname(paths[scene]), "--mode", mode,
+                                *extra, "--spp", str(spp), "--spp-chunk", str(RENDER_CHUNK), "--max-depth",
+                                str(depth), "--width", str(RENDER_RES), "--height", str(RENDER_RES), "--device",
+                                str(device), "--out", os.path.join(d, f"array_{scene}_{mode}")])
+
+    tree = load_pytree(weights["neural-sphere"])[0]
+    nb = make_neural_bsdf("sphere_full", SPH_CFG, tree["rectified"], tree["base"],
+                          sampler_cfg=SamplerConfig(pdf_exact=False), device=device)
+    table_k3 = tuple(neural_matball_sphere(nb, BSDF_MATERIALS[idx], albedo) for idx, albedo in ARRAY_TABLE)
+
+    def k3_render(spp, depth):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scenes["table"], table_k3, seed=0, spp=spp, spp_chunk=RENDER_CHUNK, max_depth=depth,
+                     device=device)
+        return img, time.perf_counter() - t0
+
+    ref = ["--weights", "reference", "--reference-ckpts", ref_root]
+    runs = {"measured gt": lambda spp, depth: cli("measured", "gt", spp, depth),
+            "measured neural-disk": lambda spp, depth: cli("measured", "neural-disk", spp, depth, ref),
+            "table gt": lambda spp, depth: cli("table", "gt", spp, depth),
+            "table neural-sphere K3": k3_render}
+    out["renders"] = {}
+    for label, fn in runs.items():
+        fn(RENDER_CHUNK, 2)  # warm-up
+        (img, dt), counts = counted(lambda: fn(ARRAY_SPP, RENDER_DEPTH))
+        r = check_render(f"array {label}", img, dt, ARRAY_SPP, counts, want=ARRAY_WANT[label])
+        scene = scenes[label.split(" ", 1)[0]]
+        mats = pixel_materials(scene.accel, scene.camera, device)
+        ball_rgb = [img[mats == MAT_BALL + i].mean(0) if (mats == MAT_BALL + i).any() else np.zeros(3)
+                    for i in range(len(scene.desc.matballs))]
+        r["ball_pixels"] = [int((mats == MAT_BALL + i).sum()) for i in range(len(ball_rgb))]
+        r["ball_mean_rgb_min"] = float(min(b.max() for b in ball_rgb))
+        require(min(r["ball_pixels"]) > 0 and r["ball_mean_rgb_min"] > 0,
+                f"array {label}: a ball is not seen or is black: {r['ball_pixels']}, {ball_rgb}")
+        out["renders"][label] = {k: r[k] for k in ("seconds", "mray_samples_per_s", "bounces", "launches",
+                                                   "mean_rgb", "ball_pixels", "ball_mean_rgb_min")}
+    measured_gt = render_cli.build_parser().parse_args(["--scene", "", "--bsdf-dir", os.path.dirname(paths["measured"]),
+                                                        "--mode", "gt"])
+    table_gt = render_cli.build_parser().parse_args(["--scene", "", "--mode", "gt"])
+    out["ray_shares"] = {
+        "measured": ball_shares(scenes["measured"], tuple(render_cli.build_matball(b, measured_gt, device)
+                                                          for b in scenes["measured"].desc.matballs), device),
+        "table": ball_shares(scenes["table"], tuple(render_cli.build_matball(b, table_gt, device)
+                                                    for b in scenes["table"].desc.matballs), device)}
+    log(f"  array renders: {json.dumps(out['renders'])}")
+    log(f"  per-ball ray shares of the 2^20-ray wavefront: {json.dumps(out['ray_shares'])}")
+    return out
+
+
 KERNELS = {
     "fused_sample_pdf_disk": ("K1 disk sample+pdf",
                               "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:579 _fused_sample_pdf_kernel "
@@ -2557,6 +2846,24 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         f"target, tabulated sampling and its native twin, the binary BVH against K5, the distributions: ok "
         f"({rest['seconds']:.1f} s)")
 
+    t0 = time.time()
+    quality = quality_phase(d, scenes, images, device)
+    quality["seconds"] = time.time() - t0
+    kl, rend = quality["kl"], quality["renders"]
+    log(f"[14a] the trained disk sampler ({QUALITY_ITERS}): mean KL against the oracle "
+        f"{kl['trained']['mean_kl_oracle']:.4f} (base {kl['base (trained pretrain)']['mean_kl_oracle']:.4f}, "
+        f"phase 10 {kl['phase 10']['mean_kl_oracle']:.4f}), consistency at most "
+        f"{kl['trained']['max_kl_consistency']:.4f}, relMSE to GT {rend['trained']['relmse_vs_gt_a']:.5f} "
+        f"(phase 10 {rend['phase 10']['relmse_vs_gt_a']:.5f}, GT seed B {rend['gt seed B']['relmse_vs_gt_a']:.5f}): "
+        f"ok ({quality['seconds']:.1f} s)")
+
+    t0 = time.time()
+    arrays = array_phase(d, weights, device)
+    arrays["seconds"] = time.time() - t0
+    rates = ", ".join(f"{k} {v['mray_samples_per_s']:.3f}" for k, v in arrays["renders"].items())
+    log(f"[14b] the 12-ball arrays at {RENDER_RES}x{RENDER_RES}, {ARRAY_SPP} spp, depth {RENDER_DEPTH}: {rates} "
+        f"Mray-samples/s: ok ({arrays['seconds']:.1f} s)")
+
     # launches: each kernel from the run of the path that runs it, counts
     # set to 0 just before: K1 from the neural-disk render, K4 from the
     # neural-spherical render, K3 from the neural-sphere render with the
@@ -2606,12 +2913,17 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                                                for label, c in multidevice["renders"].items()}
         # the anisotropic material's renders (phase 13), each a 16-spp, depth-12 render
         rows[-1]["launches_aniso_render"] = {mode: c[k] for mode, c in rest["renders"]["launches"].items()}
+        # the trained sampler's KLs (phase 14a: K1 draws, K2's pdf grid) and the 12-ball arrays (phase 14b)
+        rows[-1]["launches_trained_quality"] = quality["kl_launches"][k]
+        rows[-1]["launches_array_render"] = {label: r["launches"][k] for label, r in arrays["renders"].items()}
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
-    log(f"[14] total {time.time() - t_start:.1f} s")
+    log(f"[15] total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {"card": smi, **training}}))
     print(json.dumps({"differentiable": {"card": smi, **diff}}))
     print(json.dumps({"multidevice": {"card": smi, **multidevice}}))
     print(json.dumps({"rest": {"card": smi, **rest}}))
+    print(json.dumps({"quality": {"card": smi, **quality}}))
+    print(json.dumps({"arrays": {"card": smi, **arrays}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

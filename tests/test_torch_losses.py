@@ -103,6 +103,6 @@ def test_flow_matching_mse_and_grad_match_jax(domain):
 
 @pytest.mark.parametrize("n", [1, 2, 1000])
 def test_linspace_alpha_matches_jax(n):
-    got = tl.linspace_alpha(n).numpy()
+    got = tl.linspace_alpha(n, device="cpu").numpy()
     np.testing.assert_allclose(got, np.asarray(jl.linspace_alpha(n)), atol=1e-7)
     assert got.shape == (n, 1)

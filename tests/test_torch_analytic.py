@@ -2,6 +2,8 @@
 (`bsdf/analytic.py`), on the same directions, to 1e-5 relative: the same
 float32 arithmetic in other libraries' sin, cos and sqrt."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import jax.numpy as jnp

@@ -14,6 +14,8 @@ phi_i x 8 theta_i slices) on its matball.
 - `cli/train.py`'s target density on the anisotropic material.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 
 import jax

@@ -19,6 +19,8 @@ both packages, on scenes `render/procedural.py::write_array_scene` writes:
   median keeps one such image from deciding the comparison.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 
 import jax

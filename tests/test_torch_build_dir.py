@@ -4,6 +4,8 @@ BUILD_DIR, read from BSDF_TORCH_BUILD_DIR at import): unset, the package's
 the process, removed at its exit. Each case builds `csrc/samplewi.cpp` with
 g++ in a fresh process and draws from it."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 import subprocess
 import sys

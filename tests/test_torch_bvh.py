@@ -10,6 +10,8 @@ occlusion flags must be equal. The renders with either accel trace the
 same triangles: their images agree to 1e-3 relative on the mean.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 
 import jax.numpy as jnp

@@ -11,6 +11,8 @@ differently, so hits are compared by t, hit point and the attributes they
 look up, not by prim id.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ Rebuilt so, the table must come back bit for bit, and equal the JAX
 package's `render/bvh8.py` table (its first 16 lanes) for the same soup.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import numpy as np
 import pytest
 import torch

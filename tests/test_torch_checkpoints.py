@@ -10,6 +10,8 @@ for bit; the imported velocity net against an independent linear + SiLU
 chain over the state dict at rtol 1e-5, atol 1e-6; renders bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import json
 import os
 import re

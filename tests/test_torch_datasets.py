@@ -3,6 +3,8 @@ package's contract (tests/test_mcmc.py:28-77): shape, support, the sign of
 the omega_i . omega_o correlation of a specular lobe, and the `.npy` cache
 round trip; at 4 bands x 50 walkers x 400 sweeps."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import numpy as np

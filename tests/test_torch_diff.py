@@ -13,6 +13,8 @@ rtol 1e-3 with no atol. On the CPU the Function's forward is K3's plain
 version, which keeps float64, so `torch.autograd.gradcheck` runs on it.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import importlib.util
 import math
 from pathlib import Path

@@ -43,6 +43,8 @@ one process and against the JAX package.
   batch's draw.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import json
 import os
 import subprocess

@@ -7,6 +7,8 @@ lattice JAX's `stratified_uniform(key, n)` draws equals JAX's
 tests/test_utils.py (p > 1e-3).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ re-exports, and the functions that only those re-exports and the JAX tests
 name (`latest_step`, `flatten_mlp`, `accumulate_film`, `linspace_alpha`'s
 device). Same numpy inputs to both packages."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import ast
 import importlib
 import inspect

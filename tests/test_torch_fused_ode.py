@@ -10,6 +10,8 @@ tangents against per-step dets; x is held to 1e-5 absolute, pdfs to 1e-4
 relative (the JAX tests hold kernel against XLA to 3e-5..5e-4).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

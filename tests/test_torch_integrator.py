@@ -18,6 +18,8 @@ measured BRDF to: its inverse CDF can cross a cell on a 1-ulp difference. The tw
 BVHs (binary in JAX, 8-wide in the port).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 import struct
 import subprocess

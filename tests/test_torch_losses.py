@@ -4,6 +4,8 @@ and batches: the disk domain and the spherical ones, with phi across
 +-pi. Tolerance 1e-5 relative (float32 sums in other orders); a
 gradient is held leaf by leaf, relative to the leaf's largest entry."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import jax

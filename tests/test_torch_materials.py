@@ -8,6 +8,8 @@ relative with 1e-6 absolute (values range over ~1e-4..1e2 near specular
 peaks).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,8 @@ masks and log densities are held to JAX's on the same points: masks
 exactly, log values to 1e-5.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import jax.numpy as jnp

@@ -12,6 +12,8 @@ is held to 1e-4 relative (1e-6 absolute) on at least 99.5% of rows, and
 every row to 2e-2 absolute in positions and directions.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

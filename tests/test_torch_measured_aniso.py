@@ -19,6 +19,8 @@ its max under 0.05; varying slices self-consistent to a median of 2e-3 and
 responding to phi_i) are held by the port here.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import hashlib
 
 import jax.numpy as jnp

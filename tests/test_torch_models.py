@@ -6,6 +6,8 @@ orders, so they differ by a few ulps: 1e-6 absolute for O(1) values, 1e-5
 relative where exp() or a product of several terms follows.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,8 @@ Tolerances: float32 on both sides in other orders; directions to 1e-5
 absolute, solid-angle pdfs to 1e-4 relative.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,8 @@ T=4 Euler steps and products of dets amplify ulps, so x is held to 1e-5
 absolute and pdfs to 1e-4 relative.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,8 @@
 JAX package), keeps its own copy of the pure-Python config, runs on the
 card unless asked for the CPU, and builds no kernel at import."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import dataclasses
 import importlib.util
 import os

@@ -3,6 +3,8 @@ each writes its file, and the KL and MSE numbers equal JAX's (rel 1e-12:
 the same numpy arithmetic on the same inputs). Importing the port's
 `utils` package, and `utils.plots` itself, does not import matplotlib."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 import subprocess
 import sys

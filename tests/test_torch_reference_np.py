@@ -6,6 +6,8 @@ tolerances (tests/test_reference_np.py: rtol 1e-4 / atol 1e-6 for GGX
 shading and Fresnel, 2e-4 for the anisotropic GGX pieces).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import ast
 import inspect
 

@@ -7,6 +7,8 @@ streams (torch's generator, `jax.random`), so they are held to their
 contract instead: one point in each of n distinct cells.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import jax.numpy as jnp

@@ -10,6 +10,8 @@ a sample across a cell on a 1-ulp difference, to 1e-4 relative on at
 least 99.5% of rows.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

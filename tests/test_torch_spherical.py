@@ -15,6 +15,8 @@ T=8 steps of the 4 x 32 net; 1e-4 for the T=128 / T=256 primal transports,
 where 128-256 steps of rounding add up.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ net: directions to 2e-5 absolute, solid-angle pdfs to 2e-4 relative (the
 JAX package's own kernel-vs-XLA test holds 2e-5 and 5e-4).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ L, beta and prev_pdf agree to 1e-3 relative (1e-5 absolute) on at least
 99.5% of the rays whose flags agree.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import os
 
 import jax

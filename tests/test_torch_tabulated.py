@@ -17,6 +17,8 @@ native host twin (`native/samplewilib.py`) against the JAX package's.
   `#include` lines on.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import re
 from pathlib import Path
 

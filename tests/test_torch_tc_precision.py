@@ -48,6 +48,8 @@ about three decimal digits, and at these weights misses the gates (x ~1e-3
 off).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import jax

@@ -7,6 +7,8 @@ KL(sample histogram || analytic pdf) < 0.15 for the draws of the T = 8
 ODE, and KL(analytic grid || learned pdf grid) < 0.2 for its reverse-Euler
 pdf, both on 24 x 24 cells over [-0.6, 1] x [0, 1]."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import numpy as np
 import torch
 

@@ -17,6 +17,8 @@
   stages take minutes on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 import os
 

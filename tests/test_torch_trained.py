@@ -8,6 +8,8 @@ same batches and learning rates) with `device="cpu"` in one process where
 JAX uses an 8-device mesh, and every threshold is JAX's. Minutes of CPU
 work: marked slow, as JAX marks its own."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import math
 
 import numpy as np

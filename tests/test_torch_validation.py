@@ -2,6 +2,8 @@
 `utils/validation.py`: `sampler_vs_pdf_kl`, `image_mse` and `relative_mse`
 to 1e-12 on the same numpy inputs."""
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,8 @@ of exp(log_prob) within 0.02 of 1, the histogram KL under 0.1 (GMM) and
 0.05 (the spherical mixture's phi marginal).
 """
 
+import _torch_threads  # noqa: F401  (first: torch's threads at this worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

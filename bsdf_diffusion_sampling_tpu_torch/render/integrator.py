@@ -31,6 +31,12 @@ wavefront's launch would), every bounce stays rank-local (the traversal
 sort is local: per-ray traversal is exact), and the film sum and the
 sample count cross ranks in one `all_reduce` a pass. The traversals'
 `truncated` flag is reduced once a render.
+
+While a profiler records (`core/trace.py`), a `render()` call is the span
+`render`: each pass a `render.pass` holding `render.camera`, one
+`render.bounce` a depth (over the nine `bounce.<stage>` spans of
+`_bounce_body`) and `render.film`; then `render.finish`, the truncation
+check and the image's copy to the host.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Callable, NamedTuple, Union
 import numpy as np
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.core.prng import RowSeed, draw_seed, root_generator
 from bsdf_diffusion_sampling_tpu_torch.parallel.mesh import Mesh, all_reduce_
@@ -230,103 +237,109 @@ def _bounce_body(accel: Union[BVH8, BVH], env: EnvMap, lights: torch.Tensor, sta
     """ONE path-tracing bounce for the whole wavefront. `state` is (ro, rd,
     px, L, beta, alive, prev_pdf). Returns (state, truncated) where
     truncated is a 0-dim bool tensor: did any traversal of this bounce hit
-    its cap. `mark(name)`, if given, is called at the end of each stage
-    (a profiler records a CUDA event there; nothing else changes)."""
+    its cap. The bounce runs in nine stages, each the span `bounce.<stage>`
+    while a profiler records; `mark(stage)`, if given, is called at the end
+    of each (a profiler records a CUDA event there; nothing else changes).
+    While spans record, the counters `rows.bounce_in` and `rows.alive_in`
+    add the rows the wavefront carries in and those of them alive."""
     matballs = matball
-    mark = mark or (lambda name: None)
     ro, rd, px, L, beta, alive, prev_pdf = state
     n = ro.shape[0]
+    if trace.enabled():
+        trace.count("rows.bounce_in", n)
+        trace.count("rows.alive_in", alive.sum())
 
-    hit = _isect(accel, ro, rd, alive)
-    truncated = hit.truncated
-    miss = hit.t >= 1e29
-    mark("closest_hit")
+    with trace.stage("bounce.closest_hit", mark):
+        hit = _isect(accel, ro, rd, alive)
+        truncated = hit.truncated
+        miss = hit.t >= 1e29
 
-    # escaped rays collect the envmap, MIS-weighted against the previous
-    # bounce's BSDF pdf
-    le = eval_env(env, rd)
-    w_env = torch.where(prev_pdf > 0, mis_weight(prev_pdf, pdf_env(env, rd)), 1.0)
-    L = L + beta * le * (w_env * (alive & miss))[..., None]
-    alive = alive & ~miss
+    with trace.stage("bounce.env_hit_and_surface", mark):
+        # escaped rays collect the envmap, MIS-weighted against the previous
+        # bounce's BSDF pdf
+        le = eval_env(env, rd)
+        w_env = torch.where(prev_pdf > 0, mis_weight(prev_pdf, pdf_env(env, rd)), 1.0)
+        L = L + beta * le * (w_env * (alive & miss))[..., None]
+        alive = alive & ~miss
 
-    # surface interaction: one attribute-row gather serves normals, uvs and
-    # the material id
-    a = accel.attr_rows[hit.prim]
-    u, v = hit.u[:, None], hit.v[:, None]
-    w0 = 1.0 - u - v
-    n_sh = w0 * a[:, 0:3] + u * a[:, 3:6] + v * a[:, 6:9]
-    uv = w0 * a[:, 9:11] + u * a[:, 11:13] + v * a[:, 13:15]
-    mat_id = a[:, 15].to(torch.int32)
-    n_sh = n_sh / torch.clamp(torch.linalg.vector_norm(n_sh, dim=-1, keepdim=True), min=1e-12)
-    p_hit = ro + rd * hit.t[:, None]
-    t, bt = make_frame(n_sh)
-    wi_l = to_local(n_sh, t, bt, -rd)
-    alive = alive & (wi_l[..., 2] > 0)
-    trans_mask = _transmissive_mask(matballs, mat_id)
-    mark("env_hit_and_surface")
+        # surface interaction: one attribute-row gather serves normals, uvs
+        # and the material id
+        a = accel.attr_rows[hit.prim]
+        u, v = hit.u[:, None], hit.v[:, None]
+        w0 = 1.0 - u - v
+        n_sh = w0 * a[:, 0:3] + u * a[:, 3:6] + v * a[:, 6:9]
+        uv = w0 * a[:, 9:11] + u * a[:, 11:13] + v * a[:, 13:15]
+        mat_id = a[:, 15].to(torch.int32)
+        n_sh = n_sh / torch.clamp(torch.linalg.vector_norm(n_sh, dim=-1, keepdim=True), min=1e-12)
+        p_hit = ro + rd * hit.t[:, None]
+        t, bt = make_frame(n_sh)
+        wi_l = to_local(n_sh, t, bt, -rd)
+        alive = alive & (wi_l[..., 2] > 0)
+        trans_mask = _transmissive_mask(matballs, mat_id)
 
     def offset(wo_local):
         sign = torch.where(wo_local[..., 2] >= 0, RAY_EPS, -RAY_EPS)
         return p_hit + n_sh * sign[..., None]
 
     # ---- NEE against the envmap: sample, shadow-test, MIS
-    d_env, le_nee, pdf_e = sample_env(env, rnd.u_nee)
-    mark("nee_env_sample")
-    wo_nee_l = to_local(n_sh, t, bt, d_env)
-    f_nee, pdf_b_at_nee = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_nee_l)
-    nee_cand = alive & (pdf_e > 1e-9) & ((wo_nee_l[..., 2] > 0) | trans_mask)
-    mark("nee_eval_pdf")
-    occ, tr = _occl(accel, offset(wo_nee_l), d_env, torch.full((n,), 1e6, device=ro.device), nee_cand)
-    truncated = truncated | tr
-    mark("nee_shadow")
-    contrib = beta * f_nee * (le_nee / torch.clamp(pdf_e, min=1e-9)[..., None])
-    contrib = contrib * mis_weight(pdf_e, pdf_b_at_nee)[..., None]
-    L = L + torch.where((nee_cand & ~occ)[..., None], contrib, 0.0)
-
-    # ---- NEE against point lights (delta emitters: deterministic
-    # direction, no MIS)
-    for li in range(lights.shape[0]):
-        lp, inten = lights[li, :3], lights[li, 3:]
-        dvec = lp[None, :] - p_hit
-        dist = torch.clamp(torch.linalg.vector_norm(dvec, dim=-1), min=1e-6)
-        d_l = dvec / dist[..., None]
-        wo_light_l = to_local(n_sh, t, bt, d_l)
-        f_l = _shade_eval(matballs, mat_id, uv, wi_l, wo_light_l)
-        cand = alive & ((wo_light_l[..., 2] > 0) | trans_mask)
-        occ_l, tr = _occl(accel, offset(wo_light_l), d_l, dist - 2 * RAY_EPS, cand)
+    with trace.stage("bounce.nee_env_sample", mark):
+        d_env, le_nee, pdf_e = sample_env(env, rnd.u_nee)
+    with trace.stage("bounce.nee_eval_pdf", mark):
+        wo_nee_l = to_local(n_sh, t, bt, d_env)
+        f_nee, pdf_b_at_nee = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_nee_l)
+        nee_cand = alive & (pdf_e > 1e-9) & ((wo_nee_l[..., 2] > 0) | trans_mask)
+    with trace.stage("bounce.nee_shadow", mark):
+        occ, tr = _occl(accel, offset(wo_nee_l), d_env, torch.full((n,), 1e6, device=ro.device), nee_cand)
         truncated = truncated | tr
-        contrib_l = beta * f_l * (inten[None, :] / (dist * dist)[..., None])
-        L = L + torch.where((cand & ~occ_l)[..., None], contrib_l, 0.0)
-    mark("nee_lights")
+
+    with trace.stage("bounce.nee_lights", mark):
+        contrib = beta * f_nee * (le_nee / torch.clamp(pdf_e, min=1e-9)[..., None])
+        contrib = contrib * mis_weight(pdf_e, pdf_b_at_nee)[..., None]
+        L = L + torch.where((nee_cand & ~occ)[..., None], contrib, 0.0)
+
+        # ---- NEE against point lights (delta emitters: deterministic
+        # direction, no MIS)
+        for li in range(lights.shape[0]):
+            lp, inten = lights[li, :3], lights[li, 3:]
+            dvec = lp[None, :] - p_hit
+            dist = torch.clamp(torch.linalg.vector_norm(dvec, dim=-1), min=1e-6)
+            d_l = dvec / dist[..., None]
+            wo_light_l = to_local(n_sh, t, bt, d_l)
+            f_l = _shade_eval(matballs, mat_id, uv, wi_l, wo_light_l)
+            cand = alive & ((wo_light_l[..., 2] > 0) | trans_mask)
+            occ_l, tr = _occl(accel, offset(wo_light_l), d_l, dist - 2 * RAY_EPS, cand)
+            truncated = truncated | tr
+            contrib_l = beta * f_l * (inten[None, :] / (dist * dist)[..., None])
+            L = L + torch.where((cand & ~occ_l)[..., None], contrib_l, 0.0)
 
     # ---- BSDF sampling. pdf_b (the sampler's own pdf) divides the weight;
     # the MIS weights on both techniques use the material's eval_pdf pdf
     # (for a neural matball, the measured pdf it was trained to match): a
     # proxy shared by the NEE weight and the env-hit weight keeps the
     # weights summing to 1, so MIS stays unbiased
-    wo_l, pdf_b = _shade_sample(matballs, rnd, mat_id, wi_l)
-    mark("bsdf_sample")
-    f_b, pdf_mis = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_l)
-    mark("bsdf_eval_pdf")
-    is_ball = mat_id >= MAT_BALL
-    ok = alive & (pdf_b > 1e-9) & ((wo_l[..., 2] > 0) | trans_mask)
-    w_rgb = f_b / torch.clamp(pdf_b, min=1e-9)[..., None]
-    w_rgb = torch.where(is_ball[..., None], _ball_filter(matballs, mat_id, w_rgb), w_rgb)
-    beta = torch.where(ok[..., None], beta * w_rgb, beta)
-    alive = alive & ok & (w_rgb.amax(dim=-1) > 0)
+    with trace.stage("bounce.bsdf_sample", mark):
+        wo_l, pdf_b = _shade_sample(matballs, rnd, mat_id, wi_l)
+    with trace.stage("bounce.bsdf_eval_pdf", mark):
+        f_b, pdf_mis = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_l)
+    with trace.stage("bounce.update", mark):
+        is_ball = mat_id >= MAT_BALL
+        ok = alive & (pdf_b > 1e-9) & ((wo_l[..., 2] > 0) | trans_mask)
+        w_rgb = f_b / torch.clamp(pdf_b, min=1e-9)[..., None]
+        w_rgb = torch.where(is_ball[..., None], _ball_filter(matballs, mat_id, w_rgb), w_rgb)
+        beta = torch.where(ok[..., None], beta * w_rgb, beta)
+        alive = alive & ok & (w_rgb.amax(dim=-1) > 0)
 
-    rd = to_world(n_sh, t, bt, wo_l)
-    ro = offset(wo_l)
-    prev_pdf = torch.where(alive, pdf_mis, 0.0)
+        rd = to_world(n_sh, t, bt, wo_l)
+        ro = offset(wo_l)
+        prev_pdf = torch.where(alive, pdf_mis, 0.0)
 
-    # ---- Russian roulette (no-op while depth < RR_DEPTH)
-    if depth >= RR_DEPTH:
-        q = torch.clamp(beta.amax(dim=-1), max=RR_MAX)
-    else:
-        q = torch.ones(n, device=ro.device)
-    beta = beta / torch.clamp(q, min=1e-9)[..., None]
-    alive = alive & (rnd.u_rr < q)
-    mark("update")
+        # ---- Russian roulette (no-op while depth < RR_DEPTH)
+        if depth >= RR_DEPTH:
+            q = torch.clamp(beta.amax(dim=-1), max=RR_MAX)
+        else:
+            q = torch.ones(n, device=ro.device)
+        beta = beta / torch.clamp(q, min=1e-9)[..., None]
+        alive = alive & (rnd.u_rr < q)
     return (ro, rd, px, L, beta, alive, prev_pdf), truncated
 
 
@@ -365,20 +378,26 @@ def render_pass(scene: Scene, matball, gen: torch.Generator, *, spp_chunk: int =
     spp_chunk rays (which must divide by the mesh size) from the pass's
     global draws, and every rank returns the whole film; `truncated` is this
     rank's. Without one, the block is the whole wavefront."""
-    matballs = _as_tuple(matball)
-    w, h = scene.camera.width, scene.camera.height
-    n = w * h * spp_chunk
-    r0, m = (0, n) if mesh is None else mesh.block(n)
-    u_cam = _uniform(gen, (n, 2), 1e-7, 1.0)
-    state = _init_wavefront(scene.camera.vectors.to(gen.device), u_cam, width=w, height=h, spp_chunk=spp_chunk)
-    state = tuple(x[r0:r0 + m] for x in state)
-    truncated = torch.zeros((), dtype=torch.bool, device=gen.device)
-    for depth in range(max_depth):
-        rnd = shard_randoms(draw_bounce(gen, n, matballs), r0, m)
-        state, tr = _bounce_body(scene.accel, scene.envmap, scene.lights, state, rnd, depth, matball=matballs)
-        truncated = truncated | tr
-    img, cnt = _finish_pass(state[3], r0, mesh, width=w, height=h, spp_chunk=spp_chunk)
-    return img, cnt, truncated
+    with trace.span("render.pass"):
+        matballs = _as_tuple(matball)
+        w, h = scene.camera.width, scene.camera.height
+        n = w * h * spp_chunk
+        r0, m = (0, n) if mesh is None else mesh.block(n)
+        with trace.span("render.camera"):
+            u_cam = _uniform(gen, (n, 2), 1e-7, 1.0)
+            state = _init_wavefront(scene.camera.vectors.to(gen.device), u_cam, width=w, height=h,
+                                    spp_chunk=spp_chunk)
+            state = tuple(x[r0:r0 + m] for x in state)
+        truncated = torch.zeros((), dtype=torch.bool, device=gen.device)
+        for depth in range(max_depth):
+            with trace.span("render.bounce", depth=depth):
+                rnd = shard_randoms(draw_bounce(gen, n, matballs), r0, m)
+                state, tr = _bounce_body(scene.accel, scene.envmap, scene.lights, state, rnd, depth,
+                                         matball=matballs)
+                truncated = truncated | tr
+        with trace.span("render.film"):
+            img, cnt = _finish_pass(state[3], r0, mesh, width=w, height=h, spp_chunk=spp_chunk)
+        return img, cnt, truncated
 
 
 def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int = 4, max_depth: int = 12,
@@ -394,23 +413,25 @@ def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int 
     at the end. With a `mesh` the wavefront is sharded over its ranks
     (`render_pass`), every rank returns the whole image, and the flags are
     reduced over the mesh once, before the check."""
-    device = resolve_device(device)
-    scene = scene.to(device)
-    w, h = scene.camera.width, scene.camera.height
-    gen = root_generator(seed, device)
-    img_sum = torch.zeros((h, w, 3), device=device)
-    cnt_sum = torch.zeros((h, w), device=device)
-    truncated = torch.zeros((), dtype=torch.bool, device=device)
-    matballs = _as_tuple(matball)
-    for _ in range(max(spp // spp_chunk, 1)):
-        img, cnt, tr = render_pass(scene, matballs, gen, spp_chunk=spp_chunk, max_depth=max_depth, mesh=mesh)
-        img_sum += img
-        cnt_sum += cnt
-        truncated |= tr
-    truncated = all_reduce_(mesh, truncated.to(torch.int32), torch.distributed.ReduceOp.MAX)
-    if bool(truncated):
-        raise RuntimeError("BVH traversal hit its visit cap: the image may miss geometry")
-    return (img_sum / torch.clamp(cnt_sum, min=1.0)[..., None]).cpu().numpy()
+    with trace.span("render"):
+        device = resolve_device(device)
+        scene = scene.to(device)
+        w, h = scene.camera.width, scene.camera.height
+        gen = root_generator(seed, device)
+        img_sum = torch.zeros((h, w, 3), device=device)
+        cnt_sum = torch.zeros((h, w), device=device)
+        truncated = torch.zeros((), dtype=torch.bool, device=device)
+        matballs = _as_tuple(matball)
+        for _ in range(max(spp // spp_chunk, 1)):
+            img, cnt, tr = render_pass(scene, matballs, gen, spp_chunk=spp_chunk, max_depth=max_depth, mesh=mesh)
+            img_sum += img
+            cnt_sum += cnt
+            truncated |= tr
+        with trace.span("render.finish"):
+            truncated = all_reduce_(mesh, truncated.to(torch.int32), torch.distributed.ReduceOp.MAX)
+            if bool(truncated):
+                raise RuntimeError("BVH traversal hit its visit cap: the image may miss geometry")
+            return (img_sum / torch.clamp(cnt_sum, min=1.0)[..., None]).cpu().numpy()
 
 
 def measured_matball(brdf, firefly_clamp: float = 30.0) -> MatballFns:

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import MeasuredBRDF, eval_brdf
+from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerConfig
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.core.prng import RowSeed, draw_seed
@@ -139,22 +140,23 @@ def neural_sample(
     (disk), or (standard normal for theta, von Mises phi) (spherical). A
     spherical sampler also takes an (eps_g (N,), u_von (16, 3, N)) pair and
     draws phi from the uniforms, as the JAX package draws from a key."""
-    cond = encode_condition(_wi_coords(nb, wi_local), nb.cfg)
-    x, pdf = _sample_x_pdf(nb, generator_or_eps, wi_local, cond)
-    if nb.domain == "disk":
-        valid = (x * x).sum(-1) <= nb.disk_valid_r2  # `brdf_measured_disk.py:69-71`
-        wo = disk_to_cart(x)
-        pdf_sa = pdf * torch.clamp(wo[..., 2], min=0.0)  # `:82`
-    else:
-        theta = x[..., 0]
-        sin_t = torch.sin(theta)
-        # hemisphere for BRDFs, the full sphere for transmissive BSDFs
-        theta_max = math.pi if nb.domain == "sphere_full" else math.pi / 2
-        valid = (sin_t > nb.pole_sin_eps) & (theta > 0) & (theta < theta_max)
-        wo = spher_to_cart(theta, x[..., 1])
-        pdf_sa = pdf * _pole_jacobian(nb, sin_t)
-    valid &= wi_local[..., 2] > 0
-    return wo, torch.where(valid, torch.clamp(pdf_sa, min=0.0), 0.0)
+    with trace.span("sampler.draw"):
+        cond = encode_condition(_wi_coords(nb, wi_local), nb.cfg)
+        x, pdf = _sample_x_pdf(nb, generator_or_eps, wi_local, cond)
+        if nb.domain == "disk":
+            valid = (x * x).sum(-1) <= nb.disk_valid_r2  # `brdf_measured_disk.py:69-71`
+            wo = disk_to_cart(x)
+            pdf_sa = pdf * torch.clamp(wo[..., 2], min=0.0)  # `:82`
+        else:
+            theta = x[..., 0]
+            sin_t = torch.sin(theta)
+            # hemisphere for BRDFs, the full sphere for transmissive BSDFs
+            theta_max = math.pi if nb.domain == "sphere_full" else math.pi / 2
+            valid = (sin_t > nb.pole_sin_eps) & (theta > 0) & (theta < theta_max)
+            wo = spher_to_cart(theta, x[..., 1])
+            pdf_sa = pdf * _pole_jacobian(nb, sin_t)
+        valid &= wi_local[..., 2] > 0
+        return wo, torch.where(valid, torch.clamp(pdf_sa, min=0.0), 0.0)
 
 
 def _pdf_query(nb: NeuralBSDF, x, omega_i, cond) -> torch.Tensor:
@@ -171,19 +173,20 @@ def _pdf_query(nb: NeuralBSDF, x, omega_i, cond) -> torch.Tensor:
 
 
 def neural_pdf(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -> torch.Tensor:
-    omega_i = _wi_coords(nb, wi_local)
-    cond = encode_condition(omega_i, nb.cfg)
-    if nb.domain == "disk":
-        x = wo_local[..., :2]
-        jac = torch.clamp(wo_local[..., 2], min=0.0)
-    else:
-        x = cart_to_spher(wo_local)
-        jac = _pole_jacobian(nb, torch.sin(x[..., 0]))
-    pdf = _pdf_query(nb, x, omega_i, cond)
-    valid = wi_local[..., 2] > 0
-    if nb.domain != "sphere_full":
-        valid &= wo_local[..., 2] > 0
-    return torch.where(valid, torch.clamp(pdf * jac, min=0.0), 0.0)
+    with trace.span("sampler.pdf"):
+        omega_i = _wi_coords(nb, wi_local)
+        cond = encode_condition(omega_i, nb.cfg)
+        if nb.domain == "disk":
+            x = wo_local[..., :2]
+            jac = torch.clamp(wo_local[..., 2], min=0.0)
+        else:
+            x = cart_to_spher(wo_local)
+            jac = _pole_jacobian(nb, torch.sin(x[..., 0]))
+        pdf = _pdf_query(nb, x, omega_i, cond)
+        valid = wi_local[..., 2] > 0
+        if nb.domain != "sphere_full":
+            valid &= wo_local[..., 2] > 0
+        return torch.where(valid, torch.clamp(pdf * jac, min=0.0), 0.0)
 
 
 def neural_eval(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from bsdf_diffusion_sampling_tpu_torch.core import prng
+from bsdf_diffusion_sampling_tpu_torch.core import prng, trace
 from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, TrainConfig
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.geometry.sampling import stratified_disk, stratified_hemisphere_angles
@@ -173,14 +173,15 @@ def make_rectify_pairgen(domain: str, cfg: ModelConfig, T: int):
 
     @torch.no_grad()
     def pairgen(teacher: PackedWeights, base_params: dict, gen: torch.Generator, n_wi: int, n_per_wi: int):
-        if domain == "disk":
-            wi = stratified_disk(gen, n_wi)
-        else:
-            wi = stratified_hemisphere_angles(gen, n_wi, theta_max)
-        omega_i = wi.repeat_interleave(n_per_wi, dim=0)
-        x0 = base.sample(base_params, omega_i, gen)
-        x1, _ = fused_transport_packed(teacher, domain, x0, encode_condition(omega_i, cfg), T, with_jac=False)
-        return x0, x1, omega_i
+        with trace.span("rectify.pairgen"):
+            if domain == "disk":
+                wi = stratified_disk(gen, n_wi)
+            else:
+                wi = stratified_hemisphere_angles(gen, n_wi, theta_max)
+            omega_i = wi.repeat_interleave(n_per_wi, dim=0)
+            x0 = base.sample(base_params, omega_i, gen)
+            x1, _ = fused_transport_packed(teacher, domain, x0, encode_condition(omega_i, cfg), T, with_jac=False)
+            return x0, x1, omega_i
 
     return pairgen
 
@@ -195,16 +196,18 @@ def make_rectify_step(domain: str, cfg: ModelConfig) -> Step:
     ranks' alphas together are the global batch's linspace."""
 
     def draw(x0, x1, omega_i, gen: torch.Generator, mesh: Mesh | None = None):
-        m = x0.shape[0]
-        rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
-        perm = torch.randperm(m, generator=gen, device=x0.device) * size + rank
-        alpha = (perm.to(x0.dtype) / max(m * size - 1, 1)).reshape(-1, 1)
-        return x0, x1, omega_i, alpha
+        with trace.span("rectify.update"):
+            m = x0.shape[0]
+            rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+            perm = torch.randperm(m, generator=gen, device=x0.device) * size + rank
+            alpha = (perm.to(x0.dtype) / max(m * size - 1, 1)).reshape(-1, 1)
+            return x0, x1, omega_i, alpha
 
     def update(state: TrainState, batch, mesh: Mesh | None = None):
-        x0, x1, omega_i, alpha = batch
-        cond = encode_condition(omega_i, cfg)
-        return _descend(state, flow_matching_mse(domain, state.params, x0, x1, alpha, cond), mesh)
+        with trace.span("rectify.update"):
+            x0, x1, omega_i, alpha = batch
+            cond = encode_condition(omega_i, cfg)
+            return _descend(state, flow_matching_mse(domain, state.params, x0, x1, alpha, cond), mesh)
 
     return Step(draw, update)
 
@@ -256,9 +259,10 @@ class _HostLoss:
             self.value = loss
 
     def __float__(self) -> float:
-        if self.event is not None:
-            self.event.synchronize()
-        return float(self.value)
+        with trace.span("train.log_wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return float(self.value)
 
 
 def run_stage(
@@ -282,7 +286,10 @@ def run_stage(
     iterations. A log line reports the loss of the previous log point, which
     the device has finished by then, so the loop never waits on it. With
     `stats`, `stats[name]` gets each iteration's ms (CUDA events on the card)
-    and the stage's peak device memory.
+    and the stage's peak device memory. While a profiler records, each
+    iteration is the outermost span `train.iteration` (over the rectify
+    step's `rectify.pairgen` and `rectify.update`), each save a
+    `train.checkpoint` and each wait for a logged loss a `train.log_wait`.
 
     With a `mesh`, rank 0 alone reads the stage file, its step, parameters
     and Adam moments are broadcast to all, iteration `it` draws from
@@ -315,20 +322,23 @@ def run_stage(
     t0 = time.perf_counter()
     pending = None  # (step, loss on its way to the host) from the previous log point
     for it in range(start, iters):
-        mark()
-        loss = step_call(state, prng.iter_generator(seed, it, device), it)
-        if log_every and (it % log_every == 0 or it + 1 == iters):
-            if pending is not None:
-                rate = (it + 1 - start) / (time.perf_counter() - t0)
-                log_fn(f"[{name}] step {pending[0]}/{iters} loss {float(pending[1]):.6g} ({rate:.1f} it/s)")
-            pending = (it, _HostLoss(loss))
-        if lead and checkpoint_path and save_every and (it + 1) % save_every == 0 and it + 1 < iters:
-            ckpt.save_train_state(checkpoint_path, state.params, state.optimizer, step=it + 1)
+        with trace.span("train.iteration", step=it):
+            mark()
+            loss = step_call(state, prng.iter_generator(seed, it, device), it)
+            if log_every and (it % log_every == 0 or it + 1 == iters):
+                if pending is not None:
+                    rate = (it + 1 - start) / (time.perf_counter() - t0)
+                    log_fn(f"[{name}] step {pending[0]}/{iters} loss {float(pending[1]):.6g} ({rate:.1f} it/s)")
+                pending = (it, _HostLoss(loss))
+            if lead and checkpoint_path and save_every and (it + 1) % save_every == 0 and it + 1 < iters:
+                with trace.span("train.checkpoint"):
+                    ckpt.save_train_state(checkpoint_path, state.params, state.optimizer, step=it + 1)
     mark()
     if pending is not None:
         log_fn(f"[{name}] step {pending[0]}/{iters} loss {float(pending[1]):.6g}")
     if lead and checkpoint_path:
-        ckpt.save_train_state(checkpoint_path, state.params, state.optimizer, step=iters)
+        with trace.span("train.checkpoint"):
+            ckpt.save_train_state(checkpoint_path, state.params, state.optimizer, step=iters)
     if stats is not None:
         if cuda:
             torch.cuda.synchronize(device)

@@ -15,7 +15,8 @@
 // the product of per-step dets, since det is multiplicative). The exact K2
 // solves each forward step for its preimage by Newton in the tile: the
 // 2x2 solves are lane-local, since every lane of a quad holds its rows'
-// velocity and Jacobian. Built without --use_fast_math.
+// velocity and Jacobian (`ode_tc::newton_tile`, which the spherical exact
+// query K2s in fused_sph.cu shares). Built without --use_fast_math.
 //
 // Bound: operations. Per sample K1 and the reverse K2 do ~27k
 // multiply-adds against 108 bytes of I/O, the exact K2 at 2 Newton
@@ -43,7 +44,6 @@
 namespace {
 
 using namespace ode;
-constexpr float DET_GUARD = 1e-20f;  // fused_ode.py:925-926
 
 // Two standard normals for sample `idx` under `seed`: Philox4x32-10 keyed by
 // the seed, counter (idx, 0, 0) with idx the sample's global row (the
@@ -106,68 +106,10 @@ __global__ void __launch_bounds__(BLOCK)
   x0_out[2 * (size_t)i + 1] = x01;
 }
 
-// Exact K2's inverse of the forward Euler map for rows g and g + 8 of one
-// tile: for t = T-1..0, y = the target, a reverse-Euler warm start g = y -
-// h v(y, t/T), then `newton_iters` closed-form 2x2 Newton updates of g for
-// g + h v(g, t/T) = y, then det(I + h J) at the converged g into det, and
-// y = g. One loop takes both the updates and the det, so the kernel holds
-// one S = 3 evaluation and one S = 1. The input tangents are the identity:
-// stream k of the S = 3 evaluation is column k of J.
-template <int H, int NL>
-__device__ __forceinline__ void newton_tile(uint32_t sa, uint32_t ca, float (&y0)[2], float (&y1)[2], int T,
-                                            int newton_iters, float (&det)[2], int lane) {
-  const float eye[2][2][2] = {{{1.0f, 0.0f}, {0.0f, 1.0f}}, {{1.0f, 0.0f}, {0.0f, 1.0f}}};
-  const float h = 1.0f / (float)T;
-  det[0] = det[1] = 1.0f;
-#pragma unroll 1
-  for (int t = T - 1; t >= 0; --t) {
-    const float alpha = (float)t * h;
-    const float ye[2][2] = {{y0[0], y1[0]}, {y0[1], y1[1]}};
-    float v[1][2][2];
-    ode_tc::velocity_tile<H, NL, 2, 1>(sa, ca, ye, eye, alpha, v, lane);
-    float g0[2], g1[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      g0[r] = y0[r] - h * v[0][r][0];
-      g1[r] = y1[r] - h * v[0][r][1];
-    }
-#pragma unroll 1
-    for (int it = 0;; ++it) {  // warp-uniform: newton_iters is the same for every lane
-      const float ge[2][2] = {{g0[0], g1[0]}, {g0[1], g1[1]}};
-      float o[3][2][2];
-      ode_tc::velocity_tile<H, NL, 2, 3>(sa, ca, ge, eye, alpha, o, lane);
-      const bool last = it == newton_iters;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float a = 1.0f + h * o[1][r][0];
-        const float b = h * o[2][r][0];
-        const float c = h * o[1][r][1];
-        const float d = 1.0f + h * o[2][r][1];
-        const float dt = a * d - b * c;
-        if (last) {
-          det[r] *= dt;
-        } else {
-          const float f0 = g0[r] + h * o[0][r][0] - y0[r];
-          const float f1 = g1[r] + h * o[0][r][1] - y1[r];
-          const float dg = fabsf(dt) > DET_GUARD ? dt : 1.0f;
-          g0[r] -= (d * f0 - b * f1) / dg;
-          g1[r] -= (-c * f0 + a * f1) / dg;
-        }
-      }
-      if (last) break;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      y0[r] = g0[r];
-      y1[r] = g1[r];
-    }
-  }
-}
-
 // K2: pdf of a given x. EXACT: the Newton inverse of the forward map
-// (`newton_tile`), pdf = p0 / prod det. Otherwise reverse Euler (alpha = 1 -
-// t/T) with carried tangents, pdf = p0 * det. Rows past n run from x = 0 on
-// a zero condition and store nothing.
+// (`ode_tc::newton_tile`, shared with K2s), pdf = p0 / prod det. Otherwise
+// reverse Euler (alpha = 1 - t/T) with carried tangents, pdf = p0 * det.
+// Rows past n run from x = 0 on a zero condition and store nothing.
 template <int H, int NL, bool EXACT>
 __global__ void __launch_bounds__(BLOCK, 3)
     pdf_disk_kernel(const float* __restrict__ x_in, const float* __restrict__ cond,
@@ -190,7 +132,7 @@ __global__ void __launch_bounds__(BLOCK, 3)
     ode_tc::for_each_tile<H, NL, 2, true, ode_tc::WARPS>(
         smem, cond, w0, n, warp, lane,
         [&](uint32_t sa, uint32_t ca, float (&s0)[2], float (&s1)[2], float (&det)[2]) {
-          newton_tile<H, NL>(sa, ca, s0, s1, T, newton_iters, det, lane);
+          ode_tc::newton_tile<H, NL, 2>(sa, ca, s0, s1, T, newton_iters, det, lane);
         });
   } else {
     ode_tc::transport_warp<H, NL, 2>(smem, cond, w0, n, T, warp, lane, true);

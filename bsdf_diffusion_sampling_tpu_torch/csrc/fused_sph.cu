@@ -1,6 +1,7 @@
-// Fused spherical sample+pdf kernel (K4) for Hopper.
+// Fused spherical sample+pdf kernel (K4) and exact pdf query (K2s) for
+// Hopper.
 //
-// Replaces the JAX package's `ops/fused_ode.py::_fused_sample_pdf_sph_kernel`
+// K4 replaces the JAX package's `ops/fused_ode.py::_fused_sample_pdf_sph_kernel`
 // (pallas_call at :1534) with `_spherical_ode_loop` and `_log_i0_lanes`. Per
 // sample: the base heads (loc_theta, log_scale, loc_phi, softplus(conc) +
 // 1e-3) over cond_enc[:, :14]; theta0 = loc_theta + eps_g (exp(log_scale) +
@@ -39,6 +40,30 @@
 // much, so neither unit alone bounds the kernel. As for K1, latency limits
 // it: 168 registers a thread, 3 blocks of 128 an SM (fused_ode.cu). PERF.md
 // has its time, registers and blocks an SM.
+//
+// K2s, the exact pdf query of x = (theta, phi), replaces no TPU kernel: the
+// JAX package runs `ode/flow.py:ode_pdf_exact` under XLA, and the port ran
+// it as plain PyTorch, hundreds of small ops on every row of the wavefront,
+// twice a bounce of a neural-sphere render with the exact pdf (the CLI's
+// default), nearly all of that render's device time. Per row: the Newton
+// inverse of the forward Euler map for t = T-1..0 (a reverse-Euler warm
+// start, `newton_iters` closed-form 2x2 Newton updates with the det guard,
+// det(I + h J) at the converged point into the product), which is K2's loop
+// (`ode_tc::newton_tile`) on the spherical encoding, the input tangents the
+// encoded identity; then the base heads and log p0 at the recovered x0 as
+// `models/base_density.py::spherical_log_prob_from_heads` takes them
+// (theta's Gaussian normalised by -log_scale, phi's von Mises with K4's
+// log I0, softplus and 1e-3 epsilons); pdf = p0 / prod det. The design is
+// K4's and K2's: a warp takes 32 rows in two tiles of 16, each row three
+// streams whose hidden 32 x 32 products run on mma.sync in 3xTF32, the
+// weights staged once a block, layer 0's condition part once a row.
+//
+// Bound: operations. At T = 8 and 2 Newton iterations a row takes ~260k
+// multiply-adds (per step a primal warm start of 3,264 and three S = 3
+// evaluations of 3,264 + 2 x 3,232) against 96 bytes in and 12 out: ~8.2
+// ms at 2^20 rows on the fp32 CUDA cores, of which ~1.1 ms is the hidden
+// products' TF32 tensor-core time. As for K2, latency limits it: 168
+// registers a thread, 3 blocks of 128 an SM. PERF.md has its time.
 
 #include "ode_mlp.cuh"
 #include "ode_mlp_tc.cuh"
@@ -166,6 +191,46 @@ __global__ void __launch_bounds__(BLOCK)
   x0_out[2 * (size_t)i + 1] = phi0;
 }
 
+// K2s: the exact pdf of x = (theta, phi) and the recovered x0. Rows past n
+// run from x = 0 on a zero condition and store nothing.
+__global__ void __launch_bounds__(BLOCK, 3)
+    pdf_sph_kernel(const float* __restrict__ x_in, const float* __restrict__ cond, const float* __restrict__ w,
+                   float* __restrict__ pdf_out, float* __restrict__ x0_out, int n, int T, int newton_iters) {
+  using C = ode_tc::TcNet<H, NL, XE>;
+  extern __shared__ __align__(16) float smem[];
+  ode_tc::stage<H, NL, XE>(smem, w);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  const int i = w0 + lane;
+  const bool live = i < n;
+
+  float* st = smem + C::STATE + warp * 32 * ode_tc::ST;
+  st[lane * ode_tc::ST] = live ? x_in[2 * (size_t)i] : 0.0f;
+  st[lane * ode_tc::ST + 1] = live ? x_in[2 * (size_t)i + 1] : 0.0f;
+  __syncwarp();
+  ode_tc::for_each_tile<H, NL, XE, true, ode_tc::WARPS>(
+      smem, cond, w0, n, warp, lane,
+      [&](uint32_t sa, uint32_t ca, float (&s0)[2], float (&s1)[2], float (&det)[2]) {
+        ode_tc::newton_tile<H, NL, XE>(sa, ca, s0, s1, T, newton_iters, det, lane);
+      });
+  if (!live) return;
+
+  float c[CD];
+#pragma unroll
+  for (int k = 0; k < CD; ++k) c[k] = cond[(size_t)i * CD + k];
+  float o[4];
+  base_heads(smem + C::BASE, c, o);
+  const float loc_t = o[0], ls = o[1], loc_p = o[2], conc = softplus(o[3]) + EPS_SPH;
+  const float theta0 = st[lane * ode_tc::ST], phi0 = st[lane * ode_tc::ST + 1], det = st[lane * ode_tc::ST + 2];
+  const float z = (theta0 - loc_t) / (expf(ls) + EPS_SPH);
+  const float log_gauss = -0.5f * LOG_2PI - ls - 0.5f * z * z;
+  const float log_vm = conc * cosf(phi0 - loc_p) - LOG_2PI - log_i0(conc);
+  pdf_out[i] = expf(log_gauss + log_vm) / det;
+  x0_out[2 * (size_t)i] = theta0;
+  x0_out[2 * (size_t)i + 1] = phi0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -186,11 +251,22 @@ int bsdf_fused_sample_pdf_spherical(const float* cond, const float* eps, const l
   return (int)cudaGetLastError();
 }
 
-// Resources of instantiation `which` (0: eps, 1: Philox): out = {registers,
-// local bytes, blocks an SM, shared bytes}.
+// K2s. Widths other than (hidden 32, 4 hidden layers) are refused with
+// cudaErrorInvalidValue, as are n <= 0, T <= 0 and newton_iters < 0; the
+// Python wrapper checks first.
+int bsdf_fused_pdf_spherical(const float* x, const float* cond, const float* w, float* pdf, float* x0, int n,
+                             int T, int newton_iters, int hidden, int layers, void* stream) {
+  if (hidden != H || layers != NL || n <= 0 || T <= 0 || newton_iters < 0) return (int)cudaErrorInvalidValue;
+  pdf_sph_kernel<<<blocks_for(n), BLOCK, SMEM, (cudaStream_t)stream>>>(x, cond, w, pdf, x0, n, T, newton_iters);
+  return (int)cudaGetLastError();
+}
+
+// Resources of instantiation `which` (0: K4 with eps, 1: K4 with Philox, 2:
+// K2s): out = {registers, local bytes, blocks an SM, shared bytes}.
 int bsdf_fused_sph_kernel_info(int which, int* out) {
   if (which == 0) return ode_tc::kernel_info(sample_pdf_sph_kernel<false>, SMEM, out);
   if (which == 1) return ode_tc::kernel_info(sample_pdf_sph_kernel<true>, SMEM, out);
+  if (which == 2) return ode_tc::kernel_info(pdf_sph_kernel, SMEM, out);
   return (int)cudaErrorInvalidValue;
 }
 

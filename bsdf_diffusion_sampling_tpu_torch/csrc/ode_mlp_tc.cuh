@@ -1,17 +1,18 @@
-// Tensor-core velocity MLP and Euler transport of every fused ODE kernel:
-// the sample+pdf kernels (fused_ode.cu: K1; fused_sph.cu: K4), the disk pdf
-// query (fused_ode.cu: K2, whose Newton inverse calls `velocity_tile`
-// itself) and the generic transport (fused_transport.cu: K3).
+// Tensor-core velocity MLP, Euler transport and Newton inverse of every
+// fused ODE kernel: the sample+pdf kernels (fused_ode.cu: K1; fused_sph.cu:
+// K4), the pdf queries (fused_ode.cu: K2, disk, exact by `newton_tile` or
+// reverse; fused_sph.cu: K2s, spherical, exact by `newton_tile`) and the
+// generic transport (fused_transport.cu: K3).
 //
 // Tile. A warp runs 32 samples: one lane a sample for the per-sample scalar
 // work (base heads, draw, log p0, det, stores), then two tiles of 16 samples
 // for the transport. In a tile each sample is S rows: with the det (S = 3)
 // its primal activations and its two forward-mode tangent streams, held at
 // the same fragment position of three m16 x H tiles (P, G0, G1); without it
-// (S = 1: K3's primal transports, K2's warm starts) the primal tile
-// alone, with no silu' products and no det. Row r of each tile is sample r
-// of the tile. Lane (g = lane / 4, t = lane % 4) holds rows g and g + 8,
-// columns 8 nn + 2 t and 8 nn + 2 t + 1 of each n8 tile nn: the
+// (S = 1: K3's primal transports, the exact queries' warm starts) the
+// primal tile alone, with no silu' products and no det. Row r of each tile
+// is sample r of the tile. Lane (g = lane / 4, t = lane % 4) holds rows g
+// and g + 8, columns 8 nn + 2 t and 8 nn + 2 t + 1 of each n8 tile nn: the
 // accumulator layout of mma.m16n8k8 (c0, c1 row g; c2, c3 row g + 8). So
 // silu(z) and silu'(z) * t of one unit are register-local, and the state
 // (x, and the 2 x 2 tangent matrix m) of rows g and g + 8 is kept by the
@@ -339,6 +340,75 @@ __device__ __forceinline__ void transport_tile(uint32_t sa, uint32_t ca, float (
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) det[r] = S == 3 ? m[r][0][0] * m[r][1][1] - m[r][1][0] * m[r][0][1] : 0.0f;
+}
+
+// Exact pdf queries' inverse of the forward Euler map for rows g and g + 8
+// of one tile: for t = T-1..0, y = the target, a reverse-Euler warm start g
+// = y - h v(y, t/T), then `newton_iters` closed-form 2x2 Newton updates of g
+// for g + h v(g, t/T) = y (a det with |det| <= 1e-20 taken as 1), then
+// det(I + h J) at the converged g into det, and y = g. One loop takes both
+// the updates and the det, so the kernel holds one S = 3 evaluation and one
+// S = 1. The input tangents are the encoded identity: stream k of the S = 3
+// evaluation is column k of J, the Jacobian in the state (s0, s1). XE = 2
+// (disk: K2) reads the state as it is; XE = 3 (spherical: K2s) through
+// `encode` and `encode_tangent`, as `transport_tile` does.
+constexpr float DET_GUARD = 1e-20f;  // the JAX package's fused_ode.py:925-926
+
+template <int H, int NL, int XE>
+__device__ __forceinline__ void newton_tile(uint32_t sa, uint32_t ca, float (&y0)[2], float (&y1)[2], int T,
+                                            int newton_iters, float (&det)[2], int lane) {
+  const float eye[2][2] = {{1.0f, 0.0f}, {0.0f, 1.0f}};
+  const float h = 1.0f / (float)T;
+  det[0] = det[1] = 1.0f;
+#pragma unroll 1
+  for (int t = T - 1; t >= 0; --t) {
+    const float alpha = (float)t * h;
+    float xe[2][XE], mi[2][2][XE];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) encode<XE>(y0[r], y1[r], xe[r]);
+    float v[1][2][2];
+    velocity_tile<H, NL, XE, 1>(sa, ca, xe, mi, alpha, v, lane);  // S = 1 reads no tangent
+    float g0[2], g1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      g0[r] = y0[r] - h * v[0][r][0];
+      g1[r] = y1[r] - h * v[0][r][1];
+    }
+#pragma unroll 1
+    for (int it = 0;; ++it) {  // warp-uniform: newton_iters is the same for every lane
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        encode<XE>(g0[r], g1[r], xe[r]);
+        encode_tangent<XE>(xe[r], eye, mi[r]);
+      }
+      float o[3][2][2];
+      velocity_tile<H, NL, XE, 3>(sa, ca, xe, mi, alpha, o, lane);
+      const bool last = it == newton_iters;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float a = 1.0f + h * o[1][r][0];
+        const float b = h * o[2][r][0];
+        const float c = h * o[1][r][1];
+        const float d = 1.0f + h * o[2][r][1];
+        const float dt = a * d - b * c;
+        if (last) {
+          det[r] *= dt;
+        } else {
+          const float f0 = g0[r] + h * o[0][r][0] - y0[r];
+          const float f1 = g1[r] + h * o[0][r][1] - y1[r];
+          const float dg = fabsf(dt) > DET_GUARD ? dt : 1.0f;
+          g0[r] -= (d * f0 - b * f1) / dg;
+          g1[r] -= (-c * f0 + a * f1) / dg;
+        }
+      }
+      if (last) break;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      y0[r] = g0[r];
+      y1[r] = g1[r];
+    }
+  }
 }
 
 // A warp's 32 samples, whose first is `w0`, one tile of 16 at a time; a

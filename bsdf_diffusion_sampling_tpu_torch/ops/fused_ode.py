@@ -1,5 +1,6 @@
 """The fused ODE kernels on Hopper: disk sample+pdf (K1), disk pdf query
-(K2), spherical sample+pdf (K4) and the generic transport (K3).
+(K2), spherical sample+pdf (K4), spherical exact pdf query (K2s) and the
+generic transport (K3).
 
 - K1 `fused_sample_pdf_disk` replaces the JAX package's
   `ops/fused_ode.py::_fused_sample_pdf_kernel` (pallas_call at :684): base
@@ -13,6 +14,10 @@
   (pallas_call at :1534): Gaussian theta0 x von Mises phi0 (Best-Fisher,
   16 fixed rounds), T forward steps on (theta, sin phi, cos phi), pdf = p0 /
   det.
+- K2s `fused_pdf_spherical` replaces no TPU kernel (the JAX package runs
+  `ode/flow.py::ode_pdf_exact` under XLA): K2's Newton inverse of the
+  forward map on the spherical encoding, pdf = p0 / det at the recovered x0
+  with K4's base density.
 - K3 `fused_transport_packed` replaces `_fused_ode_kernel` (pallas_call at
   :373): T Euler steps, disk or spherical, forward or reverse, with or
   without the det product.
@@ -21,22 +26,23 @@ The kernels are CUDA C++ (`csrc/fused_ode.cu`, `fused_sph.cu`,
 `fused_transport.cu`), built for `sm_90a` at first use and called through
 `ctypes`. What bounds them on the card: operations. Per sample K1 and the
 reverse K2 do ~27k multiply-adds against ~110 bytes of I/O, the exact K2
-~89k, K4 ~78k, so arithmetic is the limit, not device memory. All run the
-velocity MLP on the tensor cores (`csrc/ode_mlp_tc.cuh`): a warp takes two
-tiles of 16 samples, each sample three rows where the Jacobian is needed
-(primal and two tangent streams) and one row where it is not (K3's primal
-transports, K2's warm starts), and the hidden products run on `mma.sync`
-m16n8k8 in 3xTF32 (each operand split into two TF32 parts, three
-products: fp32 accuracy); the per-sample work (base heads, draw, log p0,
-det) stays one lane a sample, and the exact K2's 2x2 Newton solves are
-local to each lane's registers. All take the condition's part of the first
-layer once per sample instead of once per step. The TPU kernels' lane
+~89k, K4 ~78k, K2s ~260k, so arithmetic is the limit, not device memory.
+All run the velocity MLP on the tensor cores (`csrc/ode_mlp_tc.cuh`): a
+warp takes two tiles of 16 samples, each sample three rows where the
+Jacobian is needed (primal and two tangent streams) and one row where it
+is not (K3's primal transports, the exact queries' warm starts), and the
+hidden products run on `mma.sync` m16n8k8 in 3xTF32 (each operand split
+into two TF32 parts, three products: fp32 accuracy); the per-sample work
+(base heads, draw, log p0, det) stays one lane a sample, and the exact
+K2's and K2s's 2x2 Newton solves are local to each lane's registers. All
+take the condition's part of the first layer once per sample instead of
+once per step. The TPU kernels' lane
 packing, roll shuffles and output compaction, and K3's `interleave` and
 `tile` scheduling knobs, have no counterpart.
 
 Det: K1, K4, K3 and reverse K2 carry the two tangent streams across the steps and
-take one 2x2 det at the end; exact K2 multiplies the forward step dets at
-the Newton points. The plain versions multiply per-step dets
+take one 2x2 det at the end; exact K2 and K2s multiply the forward step dets
+at the Newton points. The plain versions multiply per-step dets
 (`ode/flow.py`). Det is multiplicative, so these are the same function.
 
 Every wrapper takes its plain version for CPU tensors only. For a CUDA
@@ -76,7 +82,7 @@ K3_NETS = {("disk", 32, 3, True), ("disk", 32, 3, False), ("spherical", 32, 4, T
            ("spherical", 32, 4, False), ("spherical", 64, 6, False)}  # (domain, H, layers, with_jac)
 
 launches = {"fused_sample_pdf_disk": 0, "fused_pdf_disk": 0, "fused_sample_pdf_spherical": 0,
-            "fused_transport": 0}
+            "fused_pdf_spherical": 0, "fused_transport": 0}
 
 
 def reset_launches() -> None:
@@ -251,6 +257,15 @@ def sample_pdf_spherical_plain(w: PackedWeights, cond_enc: torch.Tensor, T: int,
     return x, p0 / det, x0
 
 
+def pdf_spherical_plain(w: PackedWeights, x: torch.Tensor, cond_enc: torch.Tensor, T: int, *,
+                        newton_iters: int = 2):
+    """K2s's function in plain PyTorch: (pdf, x0) of query points x (N, 2) =
+    (theta, phi), by the Newton inverse of the forward map."""
+    x0, det = newton_inverse("spherical", w.v_params, x, cond_enc, T, newton_iters)
+    heads = spherical_heads_from_enc(w.base_params, cond_enc[..., :BASE_COLS])
+    return torch.exp(spherical_log_prob_from_heads(heads, x0)) / det, x0
+
+
 def spherical_x0_from_seed(w: PackedWeights, cond_enc: torch.Tensor, seed: int, row0: int = 0) -> torch.Tensor:
     """The x0 = (theta0, phi0) K4 draws in-kernel from `seed` at `row0`, in
     plain PyTorch on cond_enc's device (the uniforms from
@@ -291,6 +306,8 @@ def _lib_sph() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.bsdf_fused_sample_pdf_spherical.argtypes = [P, P, P, ctypes.c_longlong, P, P, P, P, I, I, I, I, P]
     lib.bsdf_fused_sample_pdf_spherical.restype = I
+    lib.bsdf_fused_pdf_spherical.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.bsdf_fused_pdf_spherical.restype = I
     lib.bsdf_fused_sph_kernel_info.argtypes = [I, P]
     lib.bsdf_fused_sph_kernel_info.restype = I
     return lib
@@ -315,12 +332,12 @@ K3_INFO = ("K3 disk 3x32 det", "K3 disk 3x32 primal", "K3 spherical 4x32 det", "
 def kernel_resources() -> dict:
     """{instantiation: {registers, local_bytes, blocks_per_sm, shared_bytes}}
     of K1 and K4 (each with the eps and the Philox draw), K2 (exact and
-    reverse) and K3's five nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
+    reverse), K2s and K3's five nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
     `cudaFuncGetAttributes` and `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
     on the current card."""
     out = {}
     for lib, fn, names in ((_lib(), "bsdf_fused_ode_kernel_info", ("K1 eps", "K1 philox", "K2 exact", "K2 reverse")),
-                           (_lib_sph(), "bsdf_fused_sph_kernel_info", ("K4 eps", "K4 philox")),
+                           (_lib_sph(), "bsdf_fused_sph_kernel_info", ("K4 eps", "K4 philox", "K2s")),
                            (_lib_transport(), "bsdf_fused_transport_kernel_info", K3_INFO)):
         for which, name in enumerate(names):
             buf = (ctypes.c_int * 4)()
@@ -338,14 +355,14 @@ def _check(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> No
 
 def _check_launch(w: PackedWeights, cond_enc: torch.Tensor, T: int, net: tuple = K12_NET,
                   domain: str = "disk") -> torch.device:
-    dev = cond_enc.device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused kernels run on CUDA tensors, got {dev}")
     if w.domain != domain or (w.hidden, w.layers) != net:
         raise ValueError(f"this kernel is built for a {domain} net of {net[1]} hidden layers of width {net[0]}, "
                          f"got a {w.domain} net of {w.layers} of width {w.hidden}")
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
+    dev = cond_enc.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused kernels run on CUDA tensors, got {dev}")
     _check(cond_enc, "cond_enc", (cond_enc.shape[0], COND_DIM), dev)
     _check(w.flat, "weights", tuple(w.flat.shape), dev)
     return dev
@@ -466,6 +483,31 @@ def fused_sample_pdf_spherical(w: PackedWeights, cond_enc: torch.Tensor, T: int,
     _raise_on(rc, "fused_sample_pdf_spherical")
     launches["fused_sample_pdf_spherical"] += 1
     return x, pdf, x0
+
+
+def fused_pdf_spherical(w: PackedWeights, x: torch.Tensor, cond_enc: torch.Tensor, T: int, *,
+                        newton_iters: int = 2):
+    """Spherical exact pdf query (K2s), (pdf, x0) for query points x (N, 2)
+    = (theta, phi): the Newton inverse of the forward Euler map, pdf = p0 /
+    det. The full-sphere domain's nets are spherical ones."""
+    n = cond_enc.shape[0]
+    if cond_enc.device.type == "cpu":
+        return pdf_spherical_plain(w, x, cond_enc, T, newton_iters=newton_iters)
+    _check(x, "x", (n, 2), cond_enc.device)
+    if newton_iters < 0:
+        raise ValueError(f"newton_iters must be >= 0, got {newton_iters}")
+    dev = _check_launch(w, cond_enc, T, K4_NET, "spherical")
+    pdf = torch.empty((n,), dtype=torch.float32, device=dev)
+    x0 = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    if n == 0:
+        return pdf, x0
+    with torch.cuda.device(dev):
+        rc = _lib_sph().bsdf_fused_pdf_spherical(
+            x.data_ptr(), cond_enc.data_ptr(), w.flat.data_ptr(), pdf.data_ptr(), x0.data_ptr(), n, T,
+            newton_iters, w.hidden, w.layers, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "fused_pdf_spherical")
+    launches["fused_pdf_spherical"] += 1
+    return pdf, x0
 
 
 def fused_transport_packed(w: PackedWeights, domain: str, x0: torch.Tensor, cond_enc: torch.Tensor, T: int,

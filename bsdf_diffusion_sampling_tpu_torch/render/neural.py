@@ -9,13 +9,13 @@
   1/sin theta. Draws under a downward wi carry pdf 0.
 - `neural_pdf`: the pdf of a given omega_o. Disk: the Newton inverse of the
   forward map with `pdf_exact` (the default), else reverse Euler. Spherical:
-  with `pdf_exact` the Newton solve in plain PyTorch (`ode_pdf_exact`; the
-  JAX package has no kernel for it either), else the K3 reverse transport
-  times p0. The full-sphere pdf does not require wo_z > 0.
+  with `pdf_exact` the same Newton inverse (K2s; the JAX package leaves
+  `ode_pdf_exact` to XLA), else the K3 reverse transport times p0. The
+  full-sphere pdf does not require wo_z > 0.
 - `neural_eval`: the ground-truth measured BRDF `brdf` (f * cos).
 
 Sample and pdf run through the fused kernels of `ops/fused_ode.py` on the
-card (K1/K2 disk, K4 and K3 spherical; the in-kernel Philox draw when given
+card (K1/K2 disk, K4, K2s and K3 spherical; the in-kernel Philox draw when given
 a `torch.Generator` or a seed), and through their plain versions for CPU
 tensors.
 
@@ -38,11 +38,11 @@ from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher, dis
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import get_base, spherical_draw, spherical_heads_from_enc
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
-from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact
 from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import (
     BASE_COLS,
     PackedWeights,
     fused_pdf_disk,
+    fused_pdf_spherical,
     fused_sample_pdf_disk,
     fused_sample_pdf_spherical,
     fused_transport_packed,
@@ -165,9 +165,9 @@ def _pdf_query(nb: NeuralBSDF, x, omega_i, cond) -> torch.Tensor:
         pdf, _ = fused_pdf_disk(nb.packed, x.contiguous(), cond, nb.T, exact=nb.pdf_exact,
                                 newton_iters=nb.pdf_newton_iters)
         return pdf
-    if nb.pdf_exact:  # no kernel: the Newton solve in plain PyTorch, as in the JAX package
-        return ode_pdf_exact(nb.domain, nb.v_params, nb.base_params, x, omega_i, cond, nb.T,
-                             newton_iters=nb.pdf_newton_iters)
+    if nb.pdf_exact:  # K2s; the JAX package leaves this Newton solve to XLA
+        pdf, _ = fused_pdf_spherical(nb.packed, x.contiguous(), cond, nb.T, newton_iters=nb.pdf_newton_iters)
+        return pdf
     x0, det = fused_transport_packed(nb.packed, nb.domain, x.contiguous(), cond, nb.T, reverse=True)
     return torch.exp(get_base(nb.domain).log_prob(nb.base_params, x0, omega_i)) * det
 

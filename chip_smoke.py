@@ -11,24 +11,25 @@ Phases, each of which raises on failure:
   1. build the CUDA kernels from `bsdf_diffusion_sampling_tpu_torch/csrc/`,
      one nvcc per source, all started together; print each kernel's ptxas
      lines and its tensor-core instructions (HMMA, HGMMA) counted in the
-     library's SASS by `cuobjdump`; every K1, K2, K4 and K3 instantiation
-     must have the three passes of 3xTF32 (a whole number of hidden layers
-     of them: 144, 48 or 192 HMMA) and spill nothing;
+     library's SASS by `cuobjdump`; every K1, K2, K4, K2s and K3
+     instantiation must have the three passes of 3xTF32 (a whole number of
+     hidden layers of them: 144, 48 or 192 HMMA) and spill nothing;
   2. print the card's name and power limit, and the registers, local bytes
-     and blocks an SM of each K1, K2, K4, K3 and K5 instantiation; turn
+     and blocks an SM of each K1, K2, K4, K2s, K3 and K5 instantiation; turn
      TF32 off (the plain versions run in full fp32);
   3. make full-width weights from a numpy seed (disk 3 x 32; spherical
      4 x 32 and its 6 x 64 teacher), write them with the port's `.npz`
      writer, read them back, and build the neural BSDFs;
-  4. hold K1, K2 and K4 against their plain PyTorch versions on the card, at
-     2^20 rows and at 2^20 - 37 (a partly masked block), K2 exact at 0, 1
-     and 2 Newton iterations and reverse, K4 from explicit eps and from its
-     in-kernel draw; hold K3 against its plain version
+  4. hold K1, K2, K4 and K2s against their plain PyTorch versions on the
+     card, at 2^20 rows and at 2^20 - 37 (a partly masked block), K2 exact
+     at 0, 1 and 2 Newton iterations and reverse, K4 from explicit eps and
+     from its in-kernel draw, K2s at 0, 1 and 2 iterations at K4's end
+     points; hold K3 against its plain version
      in every instantiation: disk 3 x 32 and spherical 4 x 32, forward and
      reverse, with and without the det, at 2^20 and 2^20 - 37; spherical
      6 x 64 primal at T = 128 and 256 and disk primal at T = 256, at 2^16
-     and 2^16 - 37; K1, K2 (exact and reverse, at K1's end points), K4 and
-     K3 (the render's spherical 4 x 32 reverse with the det, and the 6 x 64
+     and 2^16 - 37; K1, K2 (exact and reverse, at K1's end points), K4,
+     K2s (at K4's end points) and K3 (the render's spherical 4 x 32 reverse with the det, and the 6 x 64
      teacher at T = 128 and 256) again, to the same tolerances, on weights
      that move x by O(1), where single-pass TF32 products would show; K1
      and K4 by seed launched on the rows past row0 = 2^19 and 2^19 - 37
@@ -42,17 +43,17 @@ Phases, each of which raises on failure:
      rays (closest and any hit) at 2^20 and 2^20 - 37 rays; print its
      packed layout's bytes;
   7. the sampler paths: bounces of neural_sample -> neural_pdf at 2^20
-     queries, disk and spherical (exact pdf, then K3's reverse-Euler pdf),
-     with the kernels' launch counts read around each;
+     queries, disk and spherical (the exact pdf by K2s, then K3's
+     reverse-Euler pdf), with the kernels' launch counts read around each;
   8. the render paths through `cli/render.py` at 512 x 512, depth 12 (after
      a short warm-up render in each): gt, neural-disk and neural-spherical on
-     the measured scene at 64 spp; gt and neural-sphere on the table scene
-     at 16 spp; then one neural-sphere render with the reverse-Euler pdf
+     the measured scene at 64 spp; gt and neural-sphere (the exact pdf:
+     K2s twice a bounce) on the table scene at 16 spp; then one
+     neural-sphere render with the reverse-Euler pdf
      (K3) through `render()`; the launch counts read around each render,
      and checks of the images;
   9. time each kernel (K2 exact and reverse), its plain version and its
-     bound; the plain exact
-     spherical pdf; one bounce's stages,
+     bound; one bounce's stages,
      neural-disk, neural-sphere, and neural-sphere with K3's reverse-Euler
      pdf;
   10. the training path: the MCMC ensemble against a GGX pdf grid (KL <
@@ -260,8 +261,8 @@ RENDER_CHUNK = 4
 RENDER_SPP = 64
 RENDER_DEPTH = 12
 # The table scene's renders (gt, neural-sphere) at fewer spp: each
-# neural-sphere bounce runs the plain exact spherical pdf twice on the
-# whole wavefront, which keeps the whole run inside a few minutes.
+# neural-sphere bounce runs the exact spherical pdf (K2s) twice on the
+# whole wavefront.
 TABLE_SPP = 16
 # The row offsets at which K1 and K4 by seed are launched on the tail of a
 # wavefront and held to the whole launch's rows (phase 4): the first row
@@ -311,17 +312,19 @@ TF32_PEAKS = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
 # library: the marker of their kernels' names and how many instantiations
 # each library has; and the precision of their products. fused_ode.cu's
 # marker is in K1's `sample_pdf_disk_kernel` and K2's `pdf_disk_kernel`
-# alike: two instantiations of each, each function counted once.
-TC_KERNELS = {"fused_ode.cu": ("pdf_disk_kernel", 4), "fused_sph.cu": ("sample_pdf_sph_kernel", 2),
+# alike: two instantiations of each, each function counted once;
+# fused_sph.cu's in K4's two and K2s's `pdf_sph_kernel`.
+TC_KERNELS = {"fused_ode.cu": ("pdf_disk_kernel", 4), "fused_sph.cu": ("pdf_sph_kernel", 3),
               "fused_transport.cu": ("transport_kernel", 5)}
 PRECISION = {"fused_sample_pdf_disk": "3xtf32", "fused_pdf_disk": "3xtf32", "fused_sample_pdf_spherical": "3xtf32",
+             "fused_pdf_spherical": "3xtf32",
              "fused_transport": "3xtf32"}
 # The mma.sync of one hidden 32 x 32 layer of K1, K4 and the reverse K2: 3
 # passes (lo*hi, hi*lo, hi*hi) x 3 streams (primal, two tangents) x 4 n8
 # tiles x 4 k8 chunks. The layer loop is not unrolled, so each kernel's SASS
 # holds a whole multiple of it; a dropped pass leaves 96 or 48. The exact
-# K2 holds one primal evaluation (1 stream) and one with the tangents: 48 +
-# 144 = 192, of which a dropped pass leaves 128, 144 or 176. K3's
+# K2 and K2s hold one primal evaluation (1 stream) and one with the
+# tangents: 48 + 144 = 192, of which a dropped pass leaves 128, 144 or 176. K3's
 # (`hmma_a_layer`): 3 passes x S streams (3 with the det, 1 without) x
 # (H / 8)^2 tiles: 144, 48, and 192 for its 64-wide primal net.
 HMMA_A_LAYER = 3 * 3 * (32 // 8) ** 2
@@ -509,7 +512,9 @@ def sph_inputs(nb, device, n: int, seed: int):
 def check_spherical(nb, device, n: int) -> dict:
     """Phase 4, K4: from explicit eps, against the plain version; from the
     in-kernel draw, the transport and pdf against the plain version at the
-    kernel's own x0, and the draw against its reproduction."""
+    kernel's own x0, and the draw against its reproduction. K2s at 0, 1 and
+    the sampler's Newton iterations, queried at K4's end points from eps,
+    against its plain version."""
     _, cond, eps = sph_inputs(nb, device, n, SEED + 11)
     w, T = nb.packed, nb.T
     log(f"  n = {n}")
@@ -538,8 +543,24 @@ def check_spherical(nb, device, n: int) -> dict:
     require(max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"]) <= TOL_SPH_PDF_REL, "K4 pdf differs from plain")
     require(k4p["draw_match"] >= MIN_DRAW_MATCH, "K4's in-kernel draw differs from its reproduction")
     require(k4p["phi0_in_range"], "K4 phi0 outside [-pi, pi)")
-    return {"max_abs_err": max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]),
-            "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"]), "row_offset_max_abs": k4o}
+
+    k2s = {"x0_abs": 0.0, "pdf_rel": 0.0}
+    for it in sorted({0, 1, nb.pdf_newton_iters}):  # the sampler's newton_iters is the last
+        pq, x0q = fo.fused_pdf_spherical(w, x, cond, T, newton_iters=it)
+        pqp, x0qp = fo.pdf_spherical_plain(w, x, cond, T, newton_iters=it)
+        r = {"x0_abs": max_abs(x0q, x0qp), "pdf_rel": max_rel(pq, pqp)}
+        log(f"  K2s, newton_iters {it}, vs plain: {r}")
+        require(bool(torch.isfinite(pq).all() and torch.isfinite(x0q).all()),
+                f"non-finite K2s output at newton_iters {it}")
+        k2s = {m: max(v, r[m]) for m, v in k2s.items()}
+    log(f"  K4 -> K2s round trip: x0 to the bit {float((x0q == x0).all(-1).float().mean()):.4f}, x0 max abs "
+        f"{max_abs(x0q, x0)}, pdf gap {gap_stats(pq, pdf)}")
+    require(k2s["x0_abs"] <= TOL_SPH_X_ABS, "K2s x0 differs from plain")
+    require(k2s["pdf_rel"] <= TOL_SPH_PDF_REL, "K2s pdf differs from plain")
+    return {"fused_sample_pdf_spherical": {"max_abs_err": max(k4["x_abs"], k4["x0_abs"], k4p["x_abs_at_own_x0"]),
+                                           "max_rel_err": max(k4["pdf_rel"], k4p["pdf_rel_at_own_x0"]),
+                                           "row_offset_max_abs": k4o},
+            "fused_pdf_spherical": {"max_abs_err": k2s["x0_abs"], "max_rel_err": k2s["pdf_rel"]}}
 
 
 def transport_fp64(domain: str, w, x: torch.Tensor, cond: torch.Tensor, T: int) -> torch.Tensor:
@@ -553,8 +574,8 @@ def transport_fp64(domain: str, w, x: torch.Tensor, cond: torch.Tensor, T: int) 
 def check_strong(device) -> dict:
     """Phase 4: K1 and K4 against their plain versions from eps at N_MAIN,
     K2 (exact at the sampler's newton_iters, and reverse) queried at the
-    plain K1's end points from K1's weights, so that the inverse undoes a
-    map that moves x by O(1), and K3 in the render's instantiation and as
+    plain K1's end points from K1's weights and K2s at the plain K4's from
+    K4's, so that the inverse undoes a map that moves x by O(1), and K3 in the render's instantiation and as
     the 6 x 64 teacher (at T = 128 and at the training CLI's T = 256), on
     velocity weights that move x by O(1), to the gates of check_kernels,
     check_spherical and check_transport. Products rounded to single-pass
@@ -590,6 +611,8 @@ def check_strong(device) -> dict:
         out[k] = {"max_abs_err": max(r["x_abs"], r["x0_abs"]), "max_rel_err": r["pdf_rel"]}
         if label == "K1":
             k2_at = (w, cond, T, xp.contiguous())
+        else:
+            k2s_at = (w, cond, T, xp.contiguous())
 
     w, cond, T, x_end = k2_at
     out["fused_pdf_disk"] = {"max_abs_err": 0.0, "max_rel_err": 0.0}
@@ -606,6 +629,18 @@ def check_strong(device) -> dict:
         require(r["pdf_rel"] <= TOL_PDF_REL, f"{label} pdf differs from plain on O(1)-moving weights")
         e = out["fused_pdf_disk"]
         e["max_abs_err"], e["max_rel_err"] = max(e["max_abs_err"], r["x0_abs"]), max(e["max_rel_err"], r["pdf_rel"])
+
+    w, cond, T, x_end = k2s_at
+    pdf, x0 = fo.fused_pdf_spherical(w, x_end, cond, T, newton_iters=sc.pdf_newton_iters)
+    pdfp, x0p = fo.pdf_spherical_plain(w, x_end, cond, T, newton_iters=sc.pdf_newton_iters)
+    r = {"x_moved_max": max_abs(x0p, x_end), "x0_abs": max_abs(x0, x0p), "pdf_rel": max_rel(pdf, pdfp),
+         "det_sign_flips": int((pdfp <= 0).sum())}
+    log(f"  K2s at K4's end points on O(1)-moving weights vs plain: {r}")
+    require(bool(torch.isfinite(pdf).all() and torch.isfinite(x0).all()), "non-finite K2s output on O(1)-moving weights")
+    require(r["x_moved_max"] >= 1.0, f"K2s: the O(1)-moving weights moved x by {r['x_moved_max']} only")
+    require(r["x0_abs"] <= TOL_SPH_X_ABS, "K2s x0 differs from plain on O(1)-moving weights")
+    require(r["pdf_rel"] <= TOL_SPH_PDF_REL, "K2s pdf differs from plain on O(1)-moving weights")
+    out["fused_pdf_spherical"] = {"max_abs_err": r["x0_abs"], "max_rel_err": r["pdf_rel"]}
 
     # K3: the render's reverse-Euler pdf transport from the forward end
     # points, and the teacher forward from base-like points
@@ -776,7 +811,7 @@ def main_path(nb, device) -> dict:
 def sph_sampler_path(nbs: dict, device) -> dict:
     """Phase 7, spherical: one bounce of neural_sample -> neural_pdf at
     N_MAIN for each pdf route, counts around each: K4 once; K3 once with the
-    reverse-Euler pdf, not at all with the exact one (plain PyTorch)."""
+    reverse-Euler pdf, K2s once with the exact one."""
     gen = root_generator(SEED + 14, device)
     out = {}
     for route, nb in nbs.items():
@@ -795,6 +830,7 @@ def sph_sampler_path(nbs: dict, device) -> dict:
         require(counts["fused_sample_pdf_spherical"] == 1 and counts["fused_sample_pdf_disk"] == 0,
                 "K4 not launched once (or K1 launched) for one spherical draw")
         require(counts["fused_transport"] == (1 if route == "reverse" else 0), "K3 launches off for the pdf route")
+        require(counts["fused_pdf_spherical"] == (1 if route == "exact" else 0), "K2s launches off for the pdf route")
         if route == "exact":
             require(s["gap"]["median"] < TOL_CONTRACT_MEDIAN, "exact spherical pdf disagrees with the sampler's pdf")
         out[route] = s
@@ -898,9 +934,9 @@ def timed(label: str, kern, plain, macs: int, nbytes: int, n: int, name: str, pl
 
 
 def times_spherical(nb, cases, device, name: str) -> dict:
-    """Phase 9: K4 and every K3 instantiation, their plain versions and
-    bounds; the plain exact spherical pdf at N_MAIN."""
-    wi, cond, eps = sph_inputs(nb, device, N_MAIN, SEED + 15)
+    """Phase 9: K4, K2s (at K4's draws) and every K3 instantiation, their
+    plain versions and bounds."""
+    _, cond, eps = sph_inputs(nb, device, N_MAIN, SEED + 15)
     w, T = nb.packed, nb.T
     seed = torch.tensor([11], dtype=torch.int64, device=device)
     primal, tangent = net_macs(w.hidden, w.layers, 3)
@@ -919,13 +955,14 @@ def times_spherical(nb, cases, device, name: str) -> dict:
                   n * (8 + 4 * fo.COND_DIM + 8 + 4), n, name, plain_runs=3)
         if label == K3_MAIN:
             out["fused_transport"] = r
+    # K2s: a warm start and newton_iters + 1 evaluations with the tangents a step
     x, _, _ = fo.fused_sample_pdf_spherical(w, cond, T, seed=seed)
-    omega = cart_to_spher(wi)
-    with torch.no_grad():
-        out["exact_pdf_plain_ms"] = cuda_ms(
-            lambda: ode_pdf_exact("sphere_full", nb.v_params, nb.base_params, x, omega, cond, T,
-                                  newton_iters=nb.pdf_newton_iters), runs=3, warmup=1)
-    log(f"time plain exact spherical pdf (ode_pdf_exact, N={N_MAIN}, T={T}): {out['exact_pdf_plain_ms']:.3f} ms")
+    it = nb.pdf_newton_iters
+    out["fused_pdf_spherical"] = timed(
+        "fused_pdf_spherical", lambda: fo.fused_pdf_spherical(w, x, cond, T, newton_iters=it),
+        lambda: fo.pdf_spherical_plain(w, x, cond, T, newton_iters=it),
+        N_MAIN * (once + T * (primal + (it + 1) * (primal + 2 * tangent))), N_MAIN * (8 + 4 * fo.COND_DIM + 12),
+        N_MAIN, name, plain_runs=3)
     return out
 
 
@@ -974,7 +1011,7 @@ K3_RENDER = ("table", "neural-sphere K3", TABLE_SPP)  # the reverse-Euler pdf, t
 # launches a bounce each mode must show (K5 at least 2, the others exactly)
 EXPECTED = {"gt": {}, "neural-disk": {"fused_sample_pdf_disk": 1},
             "neural-spherical": {"fused_sample_pdf_spherical": 1},
-            "neural-sphere": {"fused_sample_pdf_spherical": 1},
+            "neural-sphere": {"fused_sample_pdf_spherical": 1, "fused_pdf_spherical": 2},
             "neural-sphere K3": {"fused_sample_pdf_spherical": 1, "fused_transport": 2}}
 
 
@@ -1415,8 +1452,8 @@ FD_H, FD_RTOL, FD_ATOL, FD_DIRECTIONS = 3e-3, 5e-2, 1e-5, 3
 # 2e-6 against the gradient), and are held to FD64_RTOL with no atol.
 FD64_RTOL = 1e-3
 # The renders with the reference's weights: 512 x 512, 16 spp, depth cut to
-# 4 so that the neural-sphere render (the plain exact spherical pdf, twice
-# a bounce) keeps the phase near a minute; phase 8 runs the same kernels at
+# 4 (cut when the exact spherical pdf was still plain PyTorch, twice a
+# bounce of the neural-sphere render); phase 8 runs the same kernels at
 # depth 12.
 REF_SPP, REF_DEPTH = 16, 4
 REF_RENDERS = (("measured", "neural-disk"), ("measured", "neural-spherical"), ("table", "neural-sphere"))
@@ -2515,9 +2552,8 @@ def quality_phase(d: str, scenes: dict, images: dict, device) -> dict:
 # with 12 reference-layout checkpoints: K1 12 times a bounce), the table
 # array under one point light (gt, and neural-sphere with K3's
 # reverse-Euler pdf through render(): K4 12 and K3 24 times a bounce). The
-# neural-sphere with the exact pdf is left out on purpose: its plain exact
-# spherical pdf costs ~0.35 s a ball a bounce at 2^20 rays, minutes for 12
-# balls over 48 bounces. Each matball runs on the whole wavefront; the
+# neural-sphere with the exact pdf (K2s, 24 times a bounce) is left out:
+# phase 8 renders it on one ball. Each matball runs on the whole wavefront; the
 # share of the rays that hit each ball is printed at depths 0 and 1. At 8
 # spp, cut from 16 to make room for phase 15.
 ARRAY_SPP = 8
@@ -2964,10 +3000,13 @@ KERNELS = {
                                    "(pallas_call :1534)"),
     "fused_transport": ("K3 generic transport",
                         "bsdf_diffusion_sampling_tpu/ops/fused_ode.py:181 _fused_ode_kernel (pallas_call :373)"),
+    "fused_pdf_spherical": ("K2s spherical exact pdf query",
+                            "none: the JAX package runs bsdf_diffusion_sampling_tpu/ode/flow.py ode_pdf_exact under "
+                            "XLA"),
 }
 SOURCES = {"fused_sample_pdf_disk": "fused_ode.cu", "fused_pdf_disk": "fused_ode.cu",
            "traverse8": "traverse8.cu", "fused_sample_pdf_spherical": "fused_sph.cu",
-           "fused_transport": "fused_transport.cu"}
+           "fused_transport": "fused_transport.cu", "fused_pdf_spherical": "fused_sph.cu"}
 
 
 def count_opcodes(sass: str, opcodes: tuple = ("HMMA", "HGMMA")) -> dict:
@@ -3007,13 +3046,14 @@ def hmma_a_layer(fn: str) -> int:
     """One hidden layer's mma.sync of the kernel with mangled name `fn`:
     K3's `transport_kernel<H, NL, XE, JAC, NW>` takes 3 x S x (H / 8)^2 (S = 3
     with the det, 1 without); K2's `pdf_disk_kernel<H, NL, EXACT>` 48 + 144
-    exact (a primal and a tangent evaluation), HMMA_A_LAYER reverse; K1 and
-    K4 take HMMA_A_LAYER."""
+    exact (a primal and a tangent evaluation), HMMA_A_LAYER reverse; K2s's
+    `pdf_sph_kernel` 48 + 144 as the exact K2; K1 and K4 take
+    HMMA_A_LAYER."""
     m = re.search(r"transport_kernelILi(\d+)ELi\d+ELi\d+ELb([01])E", fn)
     if m is not None:
         return 3 * (3 if m.group(2) == "1" else 1) * (int(m.group(1)) // 8) ** 2
     m = re.search(r"\dpdf_disk_kernelILi\d+ELi\d+ELb([01])E", fn)  # K2; K1's name is sample_pdf_disk_kernel
-    if m is not None and m.group(1) == "1":
+    if (m is not None and m.group(1) == "1") or re.search(r"\dpdf_sph_kernel", fn):  # K4: sample_pdf_sph_kernel
         return HMMA_A_LAYER // 3 + HMMA_A_LAYER
     return HMMA_A_LAYER
 
@@ -3026,7 +3066,7 @@ def tc_functions(src: str, names) -> list:
 
 def tensor_core_evidence(libs: dict) -> None:
     """Phase 1: the tensor-core instructions (HMMA, HGMMA) of each CUDA
-    library's kernels, counted in its SASS; each K1, K2, K4 and K3
+    library's kernels, counted in its SASS; each K1, K2, K4, K2s and K3
     instantiation must hold a nonzero whole multiple of its hidden layer's
     count (`hmma_a_layer`), and ptxas must report no spill stores for them."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -3113,14 +3153,14 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     errs = {}
     for n in (N_MAIN, N_RAGGED):
         found = check_kernels(nb, device, n)
-        found["fused_sample_pdf_spherical"] = check_spherical(nb_sph["exact"], device, n)
+        found.update(check_spherical(nb_sph["exact"], device, n))
         for k, e in found.items():
             errs[k] = {m: max(v, errs.get(k, {}).get(m, 0.0)) for m, v in e.items()}
     cases = k3_cases(nb, nb_sph["exact"], teacher, device)
     errs["fused_transport"] = check_transport(cases)
     for k, e in check_strong(device).items():
         errs[k] = {**errs[k], **{m: max(v, errs[k][m]) for m, v in e.items()}}
-    log(f"[4] K1, K2, K4 vs plain at n = {N_MAIN} and {N_RAGGED}, K3 in {len(cases)} instantiations: ok {errs} "
+    log(f"[4] K1, K2, K4, K2s vs plain at n = {N_MAIN} and {N_RAGGED}, K3 in {len(cases)} instantiations: ok {errs} "
         f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
@@ -3234,15 +3274,17 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     # set to 0 just before: K1 from the neural-disk render, K4 from the
     # neural-spherical render, K3 from the neural-sphere render with the
     # reverse-Euler pdf, K5 from the neural-disk render, K2 from the disk
-    # sampler path. max_abs_err: x and x0 (K1, K2, K4), x (K3), t (K5);
-    # max_rel_err: the pdf (K1, K2, K4), the det (K3), t (K5).
+    # sampler path, K2s from the neural-sphere render with the exact pdf.
+    # max_abs_err: x and x0 (K1, K2, K4, K2s), x (K3), t (K5);
+    # max_rel_err: the pdf (K1, K2, K4, K2s), the det (K3), t (K5).
     render_counts = {label: r["launches"] for label, (_, r) in images.items()}
     launches = {"fused_sample_pdf_disk": render_counts["measured neural-disk"]["fused_sample_pdf_disk"],
                 "fused_pdf_disk": counts["fused_pdf_disk"],
                 "traverse8": render_counts["measured neural-disk"]["traverse8"],
                 "fused_sample_pdf_spherical":
                     render_counts["measured neural-spherical"]["fused_sample_pdf_spherical"],
-                "fused_transport": render_counts["table neural-sphere K3"]["fused_transport"]}
+                "fused_transport": render_counts["table neural-sphere K3"]["fused_transport"],
+                "fused_pdf_spherical": render_counts["table neural-sphere"]["fused_pdf_spherical"]}
     errs["traverse8"] = {"max_abs_err": max(r["t_abs_max"] for r in k5),
                          "max_rel_err": max(r["t_rel_max"] for r in k5)}
     rows = []

@@ -251,6 +251,9 @@ _K3 = "_ZN51_GLOBAL__N__91546b8d_18_fused_transport_cu_def1201916transport_kerne
 _FUSED_ODE = "_ZN45_GLOBAL__N__1f34553d_12_fused_ode_cu_adcbb23b"
 _K1 = _FUSED_ODE + "22sample_pdf_disk_kernelILi32ELi3ELb{}EEEvPKfS2_PKxS2_PfS5_S5_ii"
 _K2 = _FUSED_ODE + "15pdf_disk_kernelILi32ELi3ELb{}EEEvPKfS2_S2_PfS3_iii"
+_FUSED_SPH = "_ZN45_GLOBAL__N__2b6c1e0f_12_fused_sph_cu_5d0c9a41"
+_K4 = _FUSED_SPH + "21sample_pdf_sph_kernelILb{}EEEvPKfS2_PKxS2_PfS5_S5_iix"
+_K2S = _FUSED_SPH + "14pdf_sph_kernelEPKfS1_S1_PfS2_iii"
 
 
 @pytest.mark.parametrize("fn, want", [
@@ -262,6 +265,8 @@ _K2 = _FUSED_ODE + "15pdf_disk_kernelILi32ELi3ELb{}EEEvPKfS2_S2_PfS3_iii"
     (_K1.format(0), 144),  # K1 with eps
     (_K2.format(1), 192),  # exact K2: a primal evaluation (48) and one with the tangents (144)
     (_K2.format(0), 144),  # reverse K2: K1's transport, reversed
+    (_K4.format(1), 144),  # K4 with its in-kernel draw
+    (_K2S, 192),  # K2s: K2's exact Newton loop, a primal evaluation and one with the tangents
 ])
 def test_hmma_count_of_one_hidden_layer(fn, want):
     """What chip_smoke.py requires each K1, K2, K4 and K3 instantiation's
@@ -281,3 +286,13 @@ def test_phase_1_marker_counts_k1_and_k2_once_each():
     exact, reverse = smoke.hmma_a_layer(_K2.format(1)), smoke.hmma_a_layer(_K2.format(0))
     assert all(dropped % exact for dropped in (48 + 96, 32 + 144, 32 + 96))
     assert 96 % reverse
+
+
+def test_phase_1_marker_counts_k4_and_k2s_once_each():
+    """fused_sph.cu's marker matches K4's two instantiations and K2s, each
+    once; K2s is held to the exact K2's layer, K4 to K1's."""
+    smoke = _chip_smoke()
+    kernels = [_K4.format(0), _K4.format(1), _K2S]
+    assert smoke.tc_functions("fused_sph.cu", kernels + [_FUSED_SPH + "6helperEv"]) == kernels
+    assert len(kernels) == smoke.TC_KERNELS["fused_sph.cu"][1]
+    assert [smoke.hmma_a_layer(fn) for fn in kernels] == [144, 144, 192]

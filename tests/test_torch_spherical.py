@@ -187,6 +187,78 @@ def test_plain_k4_matches_jax_kernel(s):
     np.testing.assert_allclose(pdf2.numpy(), np.asarray(jpdf), rtol=PDF_RTOL)
 
 
+# ----------------------------------------------------------- K2s plain
+
+
+@pytest.fixture(scope="module", params=["spherical", "sphere_full"])
+def q(request):
+    """The exact query's inputs on one domain: the end points of the JAX
+    package's draws."""
+    q = sph_setup(n=N, seed=6, domain=request.param)
+    q.domain = request.param
+    q.w = tfused.prepack_spherical(q.tv, q.tb)
+    q.jx, q.jpdf = jflow.ode_sample(q.domain, q.v, q.b, jnp.asarray(q.omega), q.cond, jax.random.key(19), T)
+    return q
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_plain_k2s_matches_ode_pdf_exact(q, iters):
+    """K2s's plain version is the port's `ode_pdf_exact` to the bit (the
+    base heads from cond_enc's first 14 columns, which are PE(omega_i, 3
+    bands)) and the JAX package's to PDF_RTOL, at each number of Newton
+    iterations."""
+    x = tt(q.jx)
+    pdf, x0 = tfused.pdf_spherical_plain(q.w, x, q.t_cond, T, newton_iters=iters)
+    port = tflow.ode_pdf_exact(q.domain, q.tv, q.tb, x, q.t_omega, q.t_cond, T, newton_iters=iters)
+    torch.testing.assert_close(pdf, port, rtol=0, atol=0)
+    torch.testing.assert_close(x0, tflow.newton_inverse(q.domain, q.tv, x, q.t_cond, T, iters)[0], rtol=0, atol=0)
+    want = jflow.ode_pdf_exact(q.domain, q.v, q.b, q.jx, jnp.asarray(q.omega), q.cond, T, newton_iters=iters)
+    np.testing.assert_allclose(pdf.numpy(), np.asarray(want), rtol=PDF_RTOL, atol=1e-7)
+
+
+def test_plain_k2s_gives_back_the_draws_pdf(s):
+    """Queried at K4's plain draws, the exact query inverts each draw's own
+    forward map: it gives back the draw's x0 and pdf."""
+    x, pdf, x0 = tfused.sample_pdf_spherical_plain(s.w, s.t_cond, T, eps=torch.stack([s.eps_g, s.phi], -1))
+    pdf_q, x0_q = tfused.pdf_spherical_plain(s.w, x, s.t_cond, T)
+    np.testing.assert_allclose(x0_q.numpy(), x0.numpy(), atol=X_ATOL)
+    ok = pdf > 1e-6
+    assert int(ok.sum()) > N // 2
+    np.testing.assert_allclose(pdf_q[ok].numpy(), pdf[ok].numpy(), rtol=PDF_RTOL)
+
+
+def test_cpu_k2s_wrapper_takes_the_plain_version(q):
+    tfused.reset_launches()
+    for iters in (0, 2):
+        got = tfused.fused_pdf_spherical(q.w, tt(q.jx), q.t_cond, T, newton_iters=iters)
+        for g, w in zip(got, tfused.pdf_spherical_plain(q.w, tt(q.jx), q.t_cond, T, newton_iters=iters)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert tfused.launches["fused_pdf_spherical"] == 0 and not any(tfused.launches.values())
+
+
+@pytest.mark.parametrize("case", ["device", "x_shape", "width", "domain", "newton_iters"])
+def test_k2s_raises_instead_of_falling_back(s, case):
+    """Off the CPU the wrapper launches K2s or raises: on a device that is
+    not CUDA, on query points of another shape, on nets other than the
+    spherical 4 x 32 it is built for, on negative Newton iterations."""
+    meta = s.t_cond.to("meta")
+    x, w, iters, match = torch.empty((N, 2), device="meta"), s.w, 2, "CUDA"
+    if case == "x_shape":
+        x, match = torch.empty((N, 3), device="meta"), "x: expected"
+    elif case == "width":
+        wide = velocity_init(jax.random.key(0), ModelConfig(domain="spherical", velocity_hidden=64, velocity_layers=4))
+        w, match = tfused.prepack_spherical(params_from_jax(wide, "cpu"), s.tb), "built for"
+    elif case == "domain":
+        d = disk_setup(n=N, seed=3)
+        w, match = tfused.prepack_disk(d.tv, d.tb), "built for"
+    elif case == "newton_iters":
+        iters, match = -1, "newton_iters"
+    tfused.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        tfused.fused_pdf_spherical(w, x, meta, T, newton_iters=iters)
+    assert not any(tfused.launches.values())
+
+
 # ----------------------------------------------------------- K3 plain
 
 

@@ -25,6 +25,10 @@ from bsdf_diffusion_sampling_tpu.geometry.coords import cart_to_spher
 from bsdf_diffusion_sampling_tpu.models.base_density import _spherical_heads
 from bsdf_diffusion_sampling_tpu.render import neural as jneural
 from bsdf_diffusion_sampling_tpu_torch.core.config import SamplerConfig
+from bsdf_diffusion_sampling_tpu_torch.geometry import coords as tcoords
+from bsdf_diffusion_sampling_tpu_torch.models import velocity as tvelocity
+from bsdf_diffusion_sampling_tpu_torch.ode import flow as tflow
+from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as tfused
 from bsdf_diffusion_sampling_tpu_torch.render import neural as tneural
 
 from _torch_port import jax_spherical_draw, sph_setup, tt
@@ -98,6 +102,30 @@ def test_exact_pdf_gives_back_the_draws_pdf(s):
     ok = pdf > 1e-6
     assert int(ok.sum()) > N // 4
     assert float((pdf_q[ok] / pdf[ok] - 1).abs().median()) < 1e-3
+
+
+@pytest.mark.parametrize("domain", ["spherical", "sphere_full"])
+def test_exact_pdf_on_the_cpu_is_the_plain_newton_solve(s, domain):
+    """On CPU tensors the exact query takes K2s's plain version and
+    launches nothing: `neural_pdf` is, to the bit, what `ode_pdf_exact`
+    gives times the pole factor, masked, at the draws and at directions
+    all over the sphere."""
+    _, tnb = _nbs(s, domain, True, False)
+    wi = tt(s.wi)
+    wo, _ = tneural.neural_sample(tnb, (s.eps_g, s.u_von), wi)
+    wo = torch.cat([wo, torch.nn.functional.normalize(torch.from_numpy(s.rng.normal(size=(N, 3))).float(), dim=-1)])
+    wi = torch.cat([wi, wi])
+    tfused.reset_launches()
+    got = tneural.neural_pdf(tnb, wi, wo)
+    assert not any(tfused.launches.values())
+    omega_i, x = tcoords.cart_to_spher(wi), tcoords.cart_to_spher(wo)
+    pdf = tflow.ode_pdf_exact(domain, tnb.v_params, tnb.base_params, x, omega_i,
+                              tvelocity.encode_condition(omega_i, tnb.cfg), tnb.T, newton_iters=tnb.pdf_newton_iters)
+    jac = torch.clamp(1.0 / torch.clamp(torch.sin(x[:, 0]), min=tnb.pole_sin_eps), 0.0, 1e6)
+    valid = (wi[:, 2] > 0) & ((wo[:, 2] > 0) | (domain == "sphere_full"))
+    want = torch.where(valid, torch.clamp(pdf * jac, min=0.0), 0.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int((got > 0).sum()) > N // 2
 
 
 def test_pole_guard_and_theta_range(s):

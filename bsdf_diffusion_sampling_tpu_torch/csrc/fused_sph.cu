@@ -64,6 +64,16 @@
 // ms at 2^20 rows on the fp32 CUDA cores, of which ~1.1 ms is the hidden
 // products' TF32 tensor-core time. As for K2, latency limits it: 168
 // registers a thread, 3 blocks of 128 an SM. PERF.md has its time.
+//
+// The routed draw (`sph_draw_routed_kernel`) and query
+// (`sph_query_routed_kernel`) are K4 and K2s over the rows of many samplers
+// at once, as a scene of several full-sphere matballs routes them
+// (`render/integrator.py`): the rows come sorted by sampler in segments
+// padded to a block, and each block stages the weights of its segment's
+// sampler from a stacked buffer, then runs K4's or K2s's warp code
+// (`draw_warp`, `query_warp`) unchanged. A routed row's draw is keyed by its
+// wavefront index, so it equals what K4 over the whole wavefront draws for
+// that row.
 
 #include "ode_mlp.cuh"
 #include "ode_mlp_tc.cuh"
@@ -132,19 +142,16 @@ __device__ __forceinline__ float von_mises(const uint32_t (&wd)[4 * BLOCKS], flo
   return floor_mod(sel + loc + PI, TWO_PI) - PI;
 }
 
-// Rows past n run on a zero condition and draw, and store nothing.
-template <bool PRNG>
-__global__ void __launch_bounds__(BLOCK)
-    sample_pdf_sph_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
-                          const long long* __restrict__ seed, const float* __restrict__ w,
-                          float* __restrict__ x_out, float* __restrict__ pdf_out, float* __restrict__ x0_out,
-                          int n, int T, long long row0) {
+// One warp's K4 work: the samples w0 .. w0 + 31 (those past n run on a zero
+// condition and draw, and store nothing), the weights staged in smem.
+// Philox keys on the 64-bit seed s at the counter of `row_of(i)`, sample
+// i's row of the wavefront.
+template <bool PRNG, typename RowOf>
+__device__ __forceinline__ void draw_warp(float* smem, const float* __restrict__ cond, const float* __restrict__ eps,
+                                          uint64_t s, RowOf row_of, float* __restrict__ x_out,
+                                          float* __restrict__ pdf_out, float* __restrict__ x0_out, int n, int T,
+                                          int w0, int warp, int lane) {
   using C = ode_tc::TcNet<H, NL, XE>;
-  extern __shared__ __align__(16) float smem[];
-  ode_tc::stage<H, NL, XE>(smem, w);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int w0 = blockIdx.x * BLOCK + warp * 32;
-  if (w0 >= n) return;  // warp-uniform
   const int i = w0 + lane;
   const bool live = i < n;
 
@@ -157,8 +164,7 @@ __global__ void __launch_bounds__(BLOCK)
 
   float eps_g = 0.0f, phi0 = 0.0f;
   if (PRNG) {
-    const uint64_t s = (uint64_t)seed[0];
-    const uint64_t g = (uint64_t)row0 + (uint64_t)i;
+    const uint64_t g = row_of(i);
     uint32_t wd[4 * BLOCKS];
 #pragma unroll
     for (int b = 0; b < BLOCKS; ++b) {
@@ -191,17 +197,14 @@ __global__ void __launch_bounds__(BLOCK)
   x0_out[2 * (size_t)i + 1] = phi0;
 }
 
-// K2s: the exact pdf of x = (theta, phi) and the recovered x0. Rows past n
-// run from x = 0 on a zero condition and store nothing.
-__global__ void __launch_bounds__(BLOCK, 3)
-    pdf_sph_kernel(const float* __restrict__ x_in, const float* __restrict__ cond, const float* __restrict__ w,
-                   float* __restrict__ pdf_out, float* __restrict__ x0_out, int n, int T, int newton_iters) {
+// One warp's K2s work: the exact pdf of x = (theta, phi) and the recovered
+// x0 of rows w0 .. w0 + 31 (those past n run from x = 0 on a zero condition
+// and store nothing), the weights staged in smem.
+__device__ __forceinline__ void query_warp(float* smem, const float* __restrict__ x_in,
+                                           const float* __restrict__ cond, float* __restrict__ pdf_out,
+                                           float* __restrict__ x0_out, int n, int T, int newton_iters, int w0,
+                                           int warp, int lane) {
   using C = ode_tc::TcNet<H, NL, XE>;
-  extern __shared__ __align__(16) float smem[];
-  ode_tc::stage<H, NL, XE>(smem, w);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int w0 = blockIdx.x * BLOCK + warp * 32;
-  if (w0 >= n) return;  // warp-uniform
   const int i = w0 + lane;
   const bool live = i < n;
 
@@ -229,6 +232,73 @@ __global__ void __launch_bounds__(BLOCK, 3)
   pdf_out[i] = expf(log_gauss + log_vm) / det;
   x0_out[2 * (size_t)i] = theta0;
   x0_out[2 * (size_t)i + 1] = phi0;
+}
+
+template <bool PRNG>
+__global__ void __launch_bounds__(BLOCK)
+    sample_pdf_sph_kernel(const float* __restrict__ cond, const float* __restrict__ eps,
+                          const long long* __restrict__ seed, const float* __restrict__ w,
+                          float* __restrict__ x_out, float* __restrict__ pdf_out, float* __restrict__ x0_out,
+                          int n, int T, long long row0) {
+  extern __shared__ __align__(16) float smem[];
+  ode_tc::stage<H, NL, XE>(smem, w);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  draw_warp<PRNG>(smem, cond, eps, PRNG ? (uint64_t)seed[0] : 0ull,
+                  [&](int i) { return (uint64_t)row0 + (uint64_t)i; }, x_out, pdf_out, x0_out, n, T, w0, warp,
+                  lane);
+}
+
+// K2s: the exact pdf of x = (theta, phi) and the recovered x0.
+__global__ void __launch_bounds__(BLOCK, 3)
+    pdf_sph_kernel(const float* __restrict__ x_in, const float* __restrict__ cond, const float* __restrict__ w,
+                   float* __restrict__ pdf_out, float* __restrict__ x0_out, int n, int T, int newton_iters) {
+  extern __shared__ __align__(16) float smem[];
+  ode_tc::stage<H, NL, XE>(smem, w);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  query_warp(smem, x_in, cond, pdf_out, x0_out, n, T, newton_iters, w0, warp, lane);
+}
+
+// The routed draw and query: many samplers' rows in one launch. The rows
+// come sorted by sampler, each sampler's segment padded to a whole block
+// (BLOCK rows), so block k's rows all belong to sampler tile_ball[k], whose
+// packed weights (row tile_ball[k] of w, `stride` floats a row) it stages;
+// a block whose entry is negative (past the last segment) exits at once.
+// The draw keys Philox on the sampler's seed at the counter of the row's
+// wavefront index rows[i] (a padding slot's, 0 or more, is drawn and not
+// used), so every row draws what K4 over the whole wavefront draws there.
+__global__ void __launch_bounds__(BLOCK)
+    sph_draw_routed_kernel(const float* __restrict__ cond, const long long* __restrict__ rows,
+                           const int* __restrict__ tile_ball, const long long* __restrict__ seeds,
+                           const float* __restrict__ w, int stride, float* __restrict__ x_out,
+                           float* __restrict__ pdf_out, float* __restrict__ x0_out, int n, int T) {
+  const int b = tile_ball[blockIdx.x];
+  if (b < 0) return;  // block-uniform
+  extern __shared__ __align__(16) float smem[];
+  ode_tc::stage<H, NL, XE>(smem, w + (size_t)b * stride);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  draw_warp<true>(smem, cond, nullptr, (uint64_t)seeds[b],
+                  [&](int i) { return (uint64_t)max(rows[i], 0ll); }, x_out, pdf_out, x0_out, n, T, w0, warp,
+                  lane);
+}
+
+__global__ void __launch_bounds__(BLOCK, 3)
+    sph_query_routed_kernel(const float* __restrict__ x_in, const float* __restrict__ cond,
+                            const int* __restrict__ tile_ball, const float* __restrict__ w, int stride,
+                            float* __restrict__ pdf_out, float* __restrict__ x0_out, int n, int T, int newton_iters) {
+  const int b = tile_ball[blockIdx.x];
+  if (b < 0) return;  // block-uniform
+  extern __shared__ __align__(16) float smem[];
+  ode_tc::stage<H, NL, XE>(smem, w + (size_t)b * stride);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * BLOCK + warp * 32;
+  if (w0 >= n) return;  // warp-uniform
+  query_warp(smem, x_in, cond, pdf_out, x0_out, n, T, newton_iters, w0, warp, lane);
 }
 
 }  // namespace
@@ -261,12 +331,40 @@ int bsdf_fused_pdf_spherical(const float* x, const float* cond, const float* w, 
   return (int)cudaGetLastError();
 }
 
+// The routed draw and query over `n` slots (a multiple of BLOCK): `w` holds
+// one packed sampler a row, `stride` floats apart, `tile_ball` one entry a
+// block of slots. Widths other than (hidden 32, 4 hidden layers) are refused
+// with cudaErrorInvalidValue, as are n not a positive multiple of BLOCK, T
+// <= 0 and newton_iters < 0; the Python wrappers check first.
+int bsdf_sph_draw_routed(const float* cond, const long long* rows, const int* tile_ball, const long long* seeds,
+                         const float* w, int stride, float* x, float* pdf, float* x0, int n, int T, int hidden,
+                         int layers, void* stream) {
+  if (hidden != H || layers != NL || n <= 0 || n % BLOCK || T <= 0) return (int)cudaErrorInvalidValue;
+  sph_draw_routed_kernel<<<n / BLOCK, BLOCK, SMEM, (cudaStream_t)stream>>>(cond, rows, tile_ball, seeds, w, stride,
+                                                                        x, pdf, x0, n, T);
+  return (int)cudaGetLastError();
+}
+
+int bsdf_sph_query_routed(const float* x, const float* cond, const int* tile_ball, const float* w, int stride,
+                          float* pdf, float* x0, int n, int T, int newton_iters, int hidden, int layers,
+                          void* stream) {
+  if (hidden != H || layers != NL || n <= 0 || n % BLOCK || T <= 0 || newton_iters < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  sph_query_routed_kernel<<<n / BLOCK, BLOCK, SMEM, (cudaStream_t)stream>>>(x, cond, tile_ball, w, stride, pdf, x0,
+                                                                         n, T, newton_iters);
+  return (int)cudaGetLastError();
+}
+
 // Resources of instantiation `which` (0: K4 with eps, 1: K4 with Philox, 2:
-// K2s): out = {registers, local bytes, blocks an SM, shared bytes}.
+// K2s, 3: the routed draw, 4: the routed query): out = {registers, local
+// bytes, blocks an SM, shared bytes}.
 int bsdf_fused_sph_kernel_info(int which, int* out) {
   if (which == 0) return ode_tc::kernel_info(sample_pdf_sph_kernel<false>, SMEM, out);
   if (which == 1) return ode_tc::kernel_info(sample_pdf_sph_kernel<true>, SMEM, out);
   if (which == 2) return ode_tc::kernel_info(pdf_sph_kernel, SMEM, out);
+  if (which == 3) return ode_tc::kernel_info(sph_draw_routed_kernel, SMEM, out);
+  if (which == 4) return ode_tc::kernel_info(sph_query_routed_kernel, SMEM, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,11 @@ generic transport (K3).
 - K3 `fused_transport_packed` replaces `_fused_ode_kernel` (pallas_call at
   :373): T Euler steps, disk or spherical, forward or reverse, with or
   without the det product.
+- The routed draw `fused_sample_pdf_spherical_routed` and query
+  `fused_pdf_spherical_routed` are K4 and K2s over the rows of many
+  full-sphere samplers in one launch (`stack_packed` stacks their weights):
+  the rows sorted by sampler in segments padded to `ROUTE_TILE` rows, one
+  sampler a block. A routed draw keys Philox on the row's wavefront index.
 
 The kernels are CUDA C++ (`csrc/fused_ode.cu`, `fused_sph.cu`,
 `fused_transport.cu`), built for `sm_90a` at first use and called through
@@ -81,8 +86,11 @@ K4_NET = (32, 4)  # spherical
 K3_NETS = {("disk", 32, 3, True), ("disk", 32, 3, False), ("spherical", 32, 4, True),
            ("spherical", 32, 4, False), ("spherical", 64, 6, False)}  # (domain, H, layers, with_jac)
 
+ROUTE_TILE = 128  # rows a block of the routed kernels: a segment of one sampler's rows pads to a multiple
+
 launches = {"fused_sample_pdf_disk": 0, "fused_pdf_disk": 0, "fused_sample_pdf_spherical": 0,
-            "fused_pdf_spherical": 0, "fused_transport": 0}
+            "fused_pdf_spherical": 0, "fused_transport": 0, "fused_sample_pdf_spherical_routed": 0,
+            "fused_pdf_spherical_routed": 0}
 
 
 def reset_launches() -> None:
@@ -141,6 +149,22 @@ def prepack_spherical(v_params: list, base_params: dict) -> PackedWeights:
     return _prepack(v_params, base_params, "spherical")
 
 
+class StackedWeights(NamedTuple):
+    """Several samplers' packs of one shape, for the routed kernels: `flat`
+    holds pack b's flat weights in row b."""
+
+    packs: tuple
+    flat: torch.Tensor
+
+
+def stack_packed(packs) -> StackedWeights:
+    packs = tuple(packs)
+    shapes = {(p.domain, p.hidden, p.layers, tuple(p.flat.shape)) for p in packs}
+    if len(shapes) != 1:
+        raise ValueError(f"stacked packs must share one net shape, got {sorted(shapes)}")
+    return StackedWeights(packs, torch.stack([p.flat for p in packs]).contiguous())
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -162,8 +186,10 @@ def _philox4x32_10(c0: np.ndarray, c1: np.ndarray, k0: int, k1: int, c2: int = 0
     return c
 
 
-def _rows(n: int, row0: int) -> np.ndarray:
-    """The global rows row0 .. row0 + n - 1 as uint64."""
+def _rows(n: int, row0: int, rows=None) -> np.ndarray:
+    """The global rows row0 .. row0 + n - 1, or the given `rows`, as uint64."""
+    if rows is not None:
+        return np.asarray(torch.as_tensor(rows).cpu().numpy(), dtype=np.int64).astype(np.uint64)
     return np.arange(n, dtype=np.uint64) + np.uint64(row0)
 
 
@@ -199,14 +225,15 @@ SPH_WORDS = 2 + 3 * N_ROUNDS  # a Box-Muller pair, then 16 Best-Fisher rounds of
 SPH_BLOCKS = (SPH_WORDS + 3) // 4  # Philox blocks a sample
 
 
-def philox_spherical_draws(seed: int, n: int, row0: int = 0):
+def philox_spherical_draws(seed: int, n: int, row0: int = 0, rows=None):
     """(eps_g (n,), u_von (16, 3, n)) exactly as K4 draws them in-kernel:
     Philox4x32-10 keyed by the 64-bit seed on counters (g lo, g hi, j, 0),
-    j = 0..12, for the sample of global row g = row0 + i; words 0, 1
-    feed Box-Muller for eps_g, words 2 + 3r + role the uniforms of
+    j = 0..12, for the sample of global row g = row0 + i (or g = rows[i],
+    n of them, where `rows` is given, as the routed draw keys them); words
+    0, 1 feed Box-Muller for eps_g, words 2 + 3r + role the uniforms of
     Best-Fisher round r, clipped to [1e-7, 1 - 1e-7]."""
     seed &= (1 << 64) - 1
-    idx = _rows(n, row0)
+    idx = _rows(n, row0, rows)
     words = []
     for j in range(SPH_BLOCKS):
         words += _philox4x32_10(idx & np.uint64(_M32), idx >> np.uint64(32), seed & _M32, seed >> 32, c2=j)
@@ -266,11 +293,12 @@ def pdf_spherical_plain(w: PackedWeights, x: torch.Tensor, cond_enc: torch.Tenso
     return torch.exp(spherical_log_prob_from_heads(heads, x0)) / det, x0
 
 
-def spherical_x0_from_seed(w: PackedWeights, cond_enc: torch.Tensor, seed: int, row0: int = 0) -> torch.Tensor:
-    """The x0 = (theta0, phi0) K4 draws in-kernel from `seed` at `row0`, in
-    plain PyTorch on cond_enc's device (the uniforms from
-    `philox_spherical_draws`)."""
-    eps_g, u = philox_spherical_draws(int(seed), cond_enc.shape[0], row0)
+def spherical_x0_from_seed(w: PackedWeights, cond_enc: torch.Tensor, seed: int, row0: int = 0,
+                           rows=None) -> torch.Tensor:
+    """The x0 = (theta0, phi0) K4 draws in-kernel from `seed` at `row0` (or
+    at the wavefront rows `rows`), in plain PyTorch on cond_enc's device
+    (the uniforms from `philox_spherical_draws`)."""
+    eps_g, u = philox_spherical_draws(int(seed), cond_enc.shape[0], row0, rows)
     heads = spherical_heads_from_enc(w.base_params, cond_enc[..., :BASE_COLS])
     return spherical_draw(heads, eps_g.to(cond_enc.device), u.to(cond_enc.device))
 
@@ -310,6 +338,10 @@ def _lib_sph() -> ctypes.CDLL:
     lib.bsdf_fused_pdf_spherical.restype = I
     lib.bsdf_fused_sph_kernel_info.argtypes = [I, P]
     lib.bsdf_fused_sph_kernel_info.restype = I
+    lib.bsdf_sph_draw_routed.argtypes = [P, P, P, P, P, I, P, P, P, I, I, I, I, P]
+    lib.bsdf_sph_draw_routed.restype = I
+    lib.bsdf_sph_query_routed.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, P]
+    lib.bsdf_sph_query_routed.restype = I
     return lib
 
 
@@ -332,12 +364,13 @@ K3_INFO = ("K3 disk 3x32 det", "K3 disk 3x32 primal", "K3 spherical 4x32 det", "
 def kernel_resources() -> dict:
     """{instantiation: {registers, local_bytes, blocks_per_sm, shared_bytes}}
     of K1 and K4 (each with the eps and the Philox draw), K2 (exact and
-    reverse), K2s and K3's five nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
+    reverse), K2s, the routed K4 and K2s and K3's five nets, at their block sizes (128 threads; 256 for K3's 64 x 6 net), from
     `cudaFuncGetAttributes` and `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
     on the current card."""
     out = {}
     for lib, fn, names in ((_lib(), "bsdf_fused_ode_kernel_info", ("K1 eps", "K1 philox", "K2 exact", "K2 reverse")),
-                           (_lib_sph(), "bsdf_fused_sph_kernel_info", ("K4 eps", "K4 philox", "K2s")),
+                           (_lib_sph(), "bsdf_fused_sph_kernel_info",
+                            ("K4 eps", "K4 philox", "K2s", "K4 routed", "K2s routed")),
                            (_lib_transport(), "bsdf_fused_transport_kernel_info", K3_INFO)):
         for which, name in enumerate(names):
             buf = (ctypes.c_int * 4)()
@@ -507,6 +540,91 @@ def fused_pdf_spherical(w: PackedWeights, x: torch.Tensor, cond_enc: torch.Tenso
             newton_iters, w.hidden, w.layers, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "fused_pdf_spherical")
     launches["fused_pdf_spherical"] += 1
+    return pdf, x0
+
+
+def _per_ball(tile_ball: torch.Tensor, n: int, n_balls: int):
+    """[(ball, its slots)] of a routing on the CPU: slot s belongs to the
+    ball of its tile, tile_ball[s // ROUTE_TILE]."""
+    ball_of = tile_ball.to(torch.int64).repeat_interleave(ROUTE_TILE)[:n]
+    return [(b, torch.nonzero(ball_of == b)[:, 0]) for b in range(n_balls)]
+
+
+def _check_routed(sw: StackedWeights, cond_enc: torch.Tensor, tile_ball: torch.Tensor, T: int) -> torch.device:
+    n = cond_enc.shape[0]
+    if n % ROUTE_TILE or tuple(tile_ball.shape) != (n // ROUTE_TILE,):
+        raise ValueError(f"routed rows come in whole tiles of {ROUTE_TILE} with one tile_ball entry each, got {n} "
+                         f"rows and tile_ball of shape {tuple(tile_ball.shape)}")
+    dev = _check_launch(sw.packs[0], cond_enc, T, K4_NET, "spherical")
+    if tile_ball.device != dev or tile_ball.dtype != torch.int32 or not tile_ball.is_contiguous():
+        raise ValueError("tile_ball: expected a contiguous int32 tensor on the rows' device")
+    _check(sw.flat, "stacked weights", tuple(sw.flat.shape), dev)
+    return dev
+
+
+def fused_sample_pdf_spherical_routed(sw: StackedWeights, cond_enc: torch.Tensor, rows: torch.Tensor,
+                                      tile_ball: torch.Tensor, seeds: torch.Tensor, T: int):
+    """The routed K4: (x, pdf, x0) of n slots, n a multiple of ROUTE_TILE.
+    Slot s is drawn by sampler tile_ball[s // ROUTE_TILE] (by none where
+    that is negative: the slot's outputs are then undefined) from its kernel
+    seed seeds[ball] (int64) at the wavefront row rows[s] (int64; a padding
+    slot's is drawn and not used)."""
+    n = cond_enc.shape[0]
+    if cond_enc.device.type == "cpu":
+        x, pdf, x0 = cond_enc.new_zeros((n, 2)), cond_enc.new_zeros((n,)), cond_enc.new_zeros((n, 2))
+        for b, s in _per_ball(tile_ball, n, len(sw.packs)):
+            if s.numel():
+                w, c = sw.packs[b], cond_enc[s]
+                x0b = spherical_x0_from_seed(w, c, int(seeds[b]), rows=torch.clamp(rows[s], min=0))
+                x[s], pdf[s], x0[s] = sample_pdf_spherical_plain(w, c, T, x0=x0b)
+        return x, pdf, x0
+    dev = _check_routed(sw, cond_enc, tile_ball, T)
+    if rows.dtype != torch.int64 or seeds.dtype != torch.int64 or tuple(rows.shape) != (n,):
+        raise ValueError("rows (n,) and seeds must be int64")
+    rows, seeds = rows.contiguous(), seeds.contiguous()
+    x = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    pdf = torch.empty((n,), dtype=torch.float32, device=dev)
+    x0 = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    if n == 0:
+        return x, pdf, x0
+    w = sw.packs[0]
+    with torch.cuda.device(dev):
+        rc = _lib_sph().bsdf_sph_draw_routed(
+            cond_enc.data_ptr(), rows.data_ptr(), tile_ball.data_ptr(), seeds.data_ptr(), sw.flat.data_ptr(),
+            sw.flat.shape[1], x.data_ptr(), pdf.data_ptr(), x0.data_ptr(), n, T, w.hidden, w.layers,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "fused_sample_pdf_spherical_routed")
+    launches["fused_sample_pdf_spherical_routed"] += 1
+    return x, pdf, x0
+
+
+def fused_pdf_spherical_routed(sw: StackedWeights, x: torch.Tensor, cond_enc: torch.Tensor,
+                               tile_ball: torch.Tensor, T: int, *, newton_iters: int = 2):
+    """The routed K2s: (pdf, x0) of n query slots, routed as
+    `fused_sample_pdf_spherical_routed` routes its draws."""
+    n = cond_enc.shape[0]
+    if cond_enc.device.type == "cpu":
+        pdf, x0 = cond_enc.new_zeros((n,)), cond_enc.new_zeros((n, 2))
+        for b, s in _per_ball(tile_ball, n, len(sw.packs)):
+            if s.numel():
+                pdf[s], x0[s] = pdf_spherical_plain(sw.packs[b], x[s], cond_enc[s], T, newton_iters=newton_iters)
+        return pdf, x0
+    if newton_iters < 0:
+        raise ValueError(f"newton_iters must be >= 0, got {newton_iters}")
+    dev = _check_routed(sw, cond_enc, tile_ball, T)
+    _check(x, "x", (n, 2), dev)
+    pdf = torch.empty((n,), dtype=torch.float32, device=dev)
+    x0 = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    if n == 0:
+        return pdf, x0
+    w = sw.packs[0]
+    with torch.cuda.device(dev):
+        rc = _lib_sph().bsdf_sph_query_routed(
+            x.data_ptr(), cond_enc.data_ptr(), tile_ball.data_ptr(), sw.flat.data_ptr(), sw.flat.shape[1],
+            pdf.data_ptr(), x0.data_ptr(), n, T, newton_iters, w.hidden, w.layers,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "fused_pdf_spherical_routed")
+    launches["fused_pdf_spherical_routed"] += 1
     return pdf, x0
 
 

@@ -15,9 +15,25 @@ RGL importance sampling, the neural ODE sampler (disk, spherical), the
 analytic principled table material with a two-sided cosine sampler, or the
 full-sphere neural sampler over that material, through the identical
 integrator. A transmissive matball lets NEE and BSDF-sampled directions go
-below its surface. A bounce takes its random numbers as explicit tensors
-(`BounceRandoms`, drawn by `draw_bounce` from one `torch.Generator`), so a
-test can hand it the very draws the JAX package makes from its keys.
+below its surface.
+
+A scene of one matball runs its callbacks on the whole wavefront. A scene
+of `ROUTE_MIN_BALLS` or more routes each matball only its own rows, by the
+material id the ray hit (`_Router`): the full-sphere samplers' rows are
+partitioned by ball on the device (`route_rows`: sorted by ball, each
+ball's segment padded to the routed kernels' tile; no host sync) for one
+routed K4 draw and routed K2s queries over all of them, and only over the
+rows that use the result (the live rows for the draw, the NEE candidates
+and the kept draws for the pdf); the table materials' values come from one
+principled evaluation with each row's parameters gathered; the two-sided
+cosine draws of table balls from one draw with each row's uniforms
+gathered. Balls of other kinds (measured, neural disk) still run their
+callbacks on the whole wavefront, selected by material id. A row the
+routing leaves out holds the diffuse plane's draw and pdf.
+
+A bounce takes its random numbers as explicit tensors (`BounceRandoms`,
+drawn by `draw_bounce` from one `torch.Generator`), so a test can hand it
+the very draws the JAX package makes from its keys.
 
 The JAX package's jitted bounce / pass programs (`lax.scan` over bounces
 and passes) are Python loops here.
@@ -36,12 +52,16 @@ While a profiler records (`core/trace.py`), a `render()` call is the span
 `render`: each pass a `render.pass` holding `render.camera`, one
 `render.bounce` a depth (over the nine `bounce.<stage>` spans of
 `_bounce_body`) and `render.film`; then `render.finish`, the truncation
-check and the image's copy to the host.
+check and the image's copy to the host. A routing is the span
+`sampler.route`; the counters `rows.routed_draw` and `rows.routed_pdf` add
+the rows the routed draw and queries compute, `rows.routed_pad` the slots
+that pad their segments to whole tiles.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Callable, NamedTuple, Union
 
 import numpy as np
@@ -71,11 +91,28 @@ RR_DEPTH = 3
 RR_MAX = 0.95
 RAY_EPS = 1e-3
 GRAY = 0.18  # `scene_measured.xml:46`
+ROUTE_MIN_BALLS = 2  # matballs from which a scene routes each ball only its own rows
+
+
+class BallRoute(NamedTuple):
+    """What a scene of several matballs routes by, for one of them: `kind`
+    "table" (a material-table entry `mat` times `albedo`, drawn by the
+    two-sided cosine lobe), "sphere" (the same value, drawn and weighted by
+    the full-sphere sampler `nb`) or "other" (its callbacks); `clamp` the
+    firefly clamp on the luminance of f / pdf."""
+
+    kind: str
+    clamp: float
+    mat: object = None
+    albedo: tuple = (1.0, 1.0, 1.0)
+    nb: object = None
 
 
 class MatballFns(NamedTuple):
     """Local-frame material callbacks for one preview object. The MIS pdf
-    comes from `eval_pdf` where it is given, else from `eval` and `pdf`."""
+    comes from `eval_pdf` where it is given, else from `eval` and `pdf`.
+    `route` says what a routed scene may compute for the ball in place of
+    the callbacks; without it the ball runs its callbacks."""
 
     draw: Callable  # (generator, n) -> the randoms one bounce's sample() takes
     sample: Callable  # (randoms, wi_local) -> (wo_local, pdf)
@@ -84,6 +121,7 @@ class MatballFns(NamedTuple):
     pdf: Callable | None = None  # (wi_local, wo_local) -> (N,)
     eval_pdf: Callable | None = None  # (wi_local, wo_local) -> ((N, 3) f*cos, (N,) the MIS pdf)
     transmissive: bool = False  # a full-sphere BSDF: wo may go below the surface
+    route: BallRoute | None = None
 
 
 class BounceRandoms(NamedTuple):
@@ -121,10 +159,23 @@ def shard_randoms(rnd: BounceRandoms, r0: int, m: int) -> BounceRandoms:
     return BounceRandoms(*(_draw_rows(f, r0, m) for f in rnd))
 
 
-def _as_tuple(matball) -> tuple:
-    """Normalize to a tuple of MatballFns: ball slot i shades material id
-    MAT_BALL + i."""
-    return (matball,) if isinstance(matball, MatballFns) else tuple(matball)
+class Matballs(tuple):
+    """A scene's matballs (slot i shades material id MAT_BALL + i) with
+    their routing tables `router` (`_router`: None below ROUTE_MIN_BALLS),
+    built once on one device by `as_matballs`."""
+
+    router: _Router | None
+
+
+def as_matballs(matball, device) -> Matballs:
+    """`matball` (one MatballFns or a sequence of them) with its routing
+    tables on `device`: built here, unless `matball` already carries them
+    (`render()` builds them once a render)."""
+    if isinstance(matball, Matballs):
+        return matball
+    mbs = Matballs((matball,) if isinstance(matball, MatballFns) else matball)
+    mbs.router = _router(mbs, device)
+    return mbs
 
 
 def _ray_sort_key(rd, active):
@@ -183,19 +234,198 @@ def _albedo(mat_id, uv):
     return torch.where((mat_id == MAT_PLANE)[..., None], plane, torch.full_like(plane, GRAY))
 
 
-def _shade_eval(matballs: tuple, mat_id, uv, wi_l, wo_l):
+# ------------------------------------------------------------------ routing
+
+
+class Route(NamedTuple):
+    """Rows partitioned by group on the device: `slot_row` (C,) the
+    wavefront row of each slot (0 in a padding slot), slots sorted by group,
+    each group's segment padded to a multiple of ROUTE_TILE; `tile_ball`
+    (C / ROUTE_TILE,) int32 the group of each tile, -1 past the last
+    segment; `dest` (N,) each row's slot; `routed` (N,) which rows have one."""
+
+    slot_row: torch.Tensor
+    tile_ball: torch.Tensor
+    dest: torch.Tensor
+    routed: torch.Tensor
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """x's rows in slot order."""
+        return x.index_select(0, self.slot_row)
+
+    def scatter(self, y: torch.Tensor, default: torch.Tensor) -> torch.Tensor:
+        """Slot results y back in row order, `default` where a row has none."""
+        got = y.index_select(0, self.dest)
+        return torch.where(self.routed.reshape(-1, *(1,) * (y.ndim - 1)), got, default)
+
+
+def route_rows(group: torch.Tensor, n_groups: int, counter: str | None = None) -> Route:
+    """Partition the rows by `group` (N,) int64, -1 for a row routed to
+    none: a stable sort by group, then each group's rows in its own segment
+    of whole ROUTE_TILE tiles. The slot count C = N + n_groups (ROUTE_TILE -
+    1), rounded up to a tile, bounds every partition, so nothing is read on
+    the host; the tiles past the last segment are marked -1 for the kernels
+    to skip. While spans record, `counter` adds the routed rows and
+    `rows.routed_pad` the padding slots."""
+    from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import ROUTE_TILE
+
+    with trace.span("sampler.route"):
+        n, dev = group.shape[0], group.device
+        tiles = -(-(n + n_groups * (ROUTE_TILE - 1)) // ROUTE_TILE)
+        c = tiles * ROUTE_TILE
+        routed = group >= 0
+        key = torch.where(routed, group, n_groups)
+        order = torch.argsort(key, stable=True)
+        sk = key[order]
+        # each group's first position in sorted order (the last entry n): counts without atomics
+        first = torch.searchsorted(sk, torch.arange(n_groups + 2, device=dev))
+        cnt = first[1:] - first[:-1]
+        padded = (cnt[:n_groups] + ROUTE_TILE - 1) // ROUTE_TILE * ROUTE_TILE
+        ends = torch.cumsum(padded, 0)
+        g = torch.clamp(sk, max=n_groups - 1)
+        slot = torch.where(sk < n_groups, ends[g] - padded[g] + torch.arange(n, device=dev) - first[sk], c)
+        dest = torch.empty_like(slot).scatter_(0, order, slot)
+        slot_row = torch.zeros(c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, order)[:c]
+        tile_ball = torch.searchsorted(ends, torch.arange(tiles, device=dev) * ROUTE_TILE, right=True)
+        tile_ball = torch.where(tile_ball < n_groups, tile_ball, -1).to(torch.int32)
+        if counter is not None and trace.enabled():
+            trace.count(counter, cnt[:n_groups].sum())
+            trace.count("rows.routed_pad", (padded - cnt[:n_groups]).sum())
+        return Route(slot_row, tile_ball, torch.clamp(dest, max=c - 1), routed)
+
+
+class _Router(NamedTuple):
+    """A ball set's routing tables on one device (`_router`).
+    The (MAT_BALL + balls,) lookups by material id: `trans` transmissive,
+    `clamp` the firefly clamp (None unless every ball has one); `cos_on` a
+    ball drawn by the two-sided cosine lobe; `sph_of` the ball's place in
+    the stacked samplers `sph` (-1 if none); `tab_of` its row of the
+    principled table `tab` and `tab_albedo` (-1 if none). The callback
+    balls: `cb_sample` draw by their `sample`, `cb_eval` take their value
+    from `eval`, `cb_pdf` their MIS pdf from `eval_pdf` (value too) or
+    `pdf`."""
+
+    trans: torch.Tensor
+    clamp: torch.Tensor | None
+    cos_on: torch.Tensor
+    cos_balls: tuple
+    sph_of: torch.Tensor
+    sph_balls: tuple
+    sph: object  # StackedWeights or None
+    sph_nb: object  # one NeuralBSDF of the stack: domain, widths, T, iterations
+    tab_of: torch.Tensor
+    tab: object  # PrincipledRows or None
+    tab_albedo: torch.Tensor | None
+    cb_sample: tuple
+    cb_eval: tuple
+    cb_pdf: tuple
+
+
+def _sph_groupable(nb) -> bool:
+    from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import K4_NET
+
+    return (nb is not None and nb.domain == "sphere_full" and nb.pdf_exact
+            and (nb.packed.hidden, nb.packed.layers) == K4_NET)
+
+
+def _router(matballs: tuple, device) -> _Router | None:
+    """The routing tables of `matballs` on `device`, None below
+    ROUTE_MIN_BALLS (the whole-wavefront dispatch). Full-sphere balls that
+    the routed kernels cannot take (not the exact pdf, other widths) run
+    their callbacks over the whole wavefront; so do all of them, with a
+    warning, where they differ in T, Newton iterations or encoding."""
+    if len(matballs) < ROUTE_MIN_BALLS:
+        return None
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import PrincipledParams, PrincipledRows
+    from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import stack_packed
+
+    routes = [mb.route or BallRoute("other", math.inf) for mb in matballs]
+    sph = [i for i, r in enumerate(routes) if r.kind == "sphere" and _sph_groupable(r.nb)]
+    same = {(r.nb.cfg, r.nb.T, r.nb.pdf_newton_iters, r.nb.pole_sin_eps) for r in (routes[i] for i in sph)}
+    if len(same) > 1:  # one launch takes one T, one iteration count and one encoding
+        warnings.warn(f"{len(sph)} full-sphere matballs differ in T, Newton iterations or encoding: each runs "
+                      "over the whole wavefront, unrouted", stacklevel=3)
+        sph = []
+    tab = [i for i, r in enumerate(routes) if r.kind in ("table", "sphere") and isinstance(r.mat, PrincipledParams)]
+    cos = [i for i, r in enumerate(routes) if r.kind == "table"]
+    n_ids = MAT_BALL + len(matballs)
+
+    def lut(values: dict, fill, dtype):
+        return torch.tensor([values.get(m - MAT_BALL, fill) for m in range(n_ids)], dtype=dtype, device=device)
+
+    clamps = [r.clamp for r in routes]
+    return _Router(
+        trans=lut({i: mb.transmissive for i, mb in enumerate(matballs)}, False, torch.bool),
+        clamp=None if any(c is None or math.isinf(c) for c in clamps) else lut(dict(enumerate(clamps)), math.inf,
+                                                                                 torch.float32),
+        cos_on=lut({i: True for i in cos}, False, torch.bool),
+        cos_balls=tuple(cos),
+        sph_of=lut({b: k for k, b in enumerate(sph)}, -1, torch.int64),
+        sph_balls=tuple(sph),
+        sph=stack_packed([routes[i].nb.packed for i in sph]) if sph else None,
+        sph_nb=routes[sph[0]].nb if sph else None,
+        tab_of=lut({b: k for k, b in enumerate(tab)}, -1, torch.int64),
+        tab=PrincipledRows.of([routes[i].mat for i in tab], device) if tab else None,
+        tab_albedo=torch.tensor([routes[i].albedo for i in tab], dtype=torch.float32, device=device).reshape(-1, 3),
+        cb_sample=tuple(i for i in range(len(matballs)) if i not in sph and i not in cos),
+        cb_eval=tuple(i for i in range(len(matballs)) if i not in tab),
+        cb_pdf=tuple(i for i in range(len(matballs)) if i not in sph and i not in cos),
+    )
+
+
+def _seeds(rands) -> tuple:
+    """(seeds (B,) int64, the wavefront's first row) of the balls' kernel
+    seeds or shard seeds (`RowSeed`)."""
+    row0 = rands[0].row0 if isinstance(rands[0], RowSeed) else 0
+    return torch.cat([(d.seed if isinstance(d, RowSeed) else d).reshape(1) for d in rands]), row0
+
+
+def _table_values(r: _Router, mid, wi_l, wo_l, out):
+    """The table balls' f * cos from one principled evaluation, each row
+    under its ball's material and albedo; `out` elsewhere."""
+    if r.tab is None:
+        return out
+    from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import eval_principled_rows
+
+    k = r.tab_of[mid]
+    kc = torch.clamp(k, min=0)
+    f = eval_principled_rows(r.tab.take(kc), wi_l, wo_l)[..., None] * r.tab_albedo[kc]
+    return torch.where((k >= 0)[..., None], f, out)
+
+
+def _cosine_pdf(r: _Router, mid, wo_l):
+    """The two-sided cosine lobe's pdf of each row's table ball."""
+    base = wo_l[..., 2].abs() / math.pi
+    return torch.where(r.trans[mid], base * 0.5, torch.where(wo_l[..., 2] > 0, base, 0.0))
+
+
+# ---------------------------------------------------------- the dispatch
+
+
+def _shade_eval(matballs: Matballs, mat_id, uv, wi_l, wo_l):
     """f*cos for all materials, masked by mat_id."""
     out = diffuse_eval(_albedo(mat_id, uv), wo_l)
+    r = matballs.router
+    if r is not None:
+        mid = mat_id.long()
+        out = _table_values(r, mid, wi_l, wo_l, out)
+        for i in r.cb_eval:
+            out = torch.where((mat_id == MAT_BALL + i)[..., None], matballs[i].eval(wi_l, wo_l), out)
+        return out
     for i, mb in enumerate(matballs):
         out = torch.where((mat_id == MAT_BALL + i)[..., None], mb.eval(wi_l, wo_l), out)
     return out
 
 
-def _shade_eval_pdf(matballs: tuple, mat_id, uv, wi_l, wo_l):
+def _shade_eval_pdf(matballs: Matballs, mat_id, uv, wi_l, wo_l, need=None):
     """(f*cos, pdf) for all materials, each matball's from its fused
-    eval_pdf where it has one."""
+    eval_pdf where it has one. Routed, the full-sphere samplers' pdfs are
+    queried only on the rows of `need` (every row without it)."""
     f = diffuse_eval(_albedo(mat_id, uv), wo_l)
     pdf = diffuse_pdf(wo_l)
+    r = matballs.router
+    if r is not None:
+        return _routed_eval_pdf(r, matballs, mat_id, wi_l, wo_l, need, f, pdf)
     for i, mb in enumerate(matballs):
         if mb.eval_pdf is not None:
             fb, pb = mb.eval_pdf(wi_l, wo_l)
@@ -207,17 +437,85 @@ def _shade_eval_pdf(matballs: tuple, mat_id, uv, wi_l, wo_l):
     return f, pdf
 
 
-def _shade_sample(matballs: tuple, rnd: BounceRandoms, mat_id, wi_l):
+def _routed_eval_pdf(r: _Router, matballs, mat_id, wi_l, wo_l, need, f, pdf):
+    mid = mat_id.long()
+    f = _table_values(r, mid, wi_l, wo_l, f)
+    if r.cos_balls:
+        pdf = torch.where(r.cos_on[mid], _cosine_pdf(r, mid, wo_l), pdf)
+    for i in r.cb_eval:
+        if i not in r.cb_pdf:
+            f = torch.where((mat_id == MAT_BALL + i)[..., None], matballs[i].eval(wi_l, wo_l), f)
+    for i in r.cb_pdf:
+        mb, is_b = matballs[i], mat_id == MAT_BALL + i
+        if mb.eval_pdf is not None:
+            fb, pb = mb.eval_pdf(wi_l, wo_l)
+            f = torch.where(is_b[..., None], fb, f)
+        else:
+            pb = mb.pdf(wi_l, wo_l)
+            if i in r.cb_eval:
+                f = torch.where(is_b[..., None], mb.eval(wi_l, wo_l), f)
+        pdf = torch.where(is_b, pb, pdf)
+    if r.sph is not None:
+        from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_pdf_routed
+
+        g = r.sph_of[mid]
+        if need is not None:
+            g = torch.where(need, g, -1)
+        rt = route_rows(g, len(r.sph_balls), "rows.routed_pdf")
+        pb = neural_pdf_routed(r.sph_nb, r.sph, rt.tile_ball, rt.gather(wi_l), rt.gather(wo_l))
+        pdf = rt.scatter(pb, pdf)
+    return f, pdf
+
+
+def _shade_sample(matballs: Matballs, rnd: BounceRandoms, mat_id, wi_l, need=None):
+    """(wo, pdf) of every row's material. Routed, the full-sphere samplers
+    draw only the rows of `need` (every row without it)."""
     wo, pdf = cosine_sample(rnd.u_diffuse)
-    for i, mb in enumerate(matballs):
-        wo_b, pdf_b = mb.sample(rnd.ball[i], wi_l)
+    r = matballs.router
+    if r is None:
+        for i, mb in enumerate(matballs):
+            wo_b, pdf_b = mb.sample(rnd.ball[i], wi_l)
+            is_b = mat_id == MAT_BALL + i
+            wo = torch.where(is_b[..., None], wo_b, wo)
+            pdf = torch.where(is_b, pdf_b, pdf)
+        return wo, pdf
+    mid = mat_id.long()
+    if r.cos_balls:  # one two-sided cosine draw, each row from its ball's uniforms
+        u, side = rnd.u_diffuse, torch.zeros_like(rnd.u_rr)
+        for i in r.cos_balls:
+            is_b = mat_id == MAT_BALL + i
+            u = torch.where(is_b[..., None], rnd.ball[i][0], u)
+            side = torch.where(is_b, rnd.ball[i][1], side)
+        wo_c, pdf_c = cosine_sample(u)
+        down = r.trans[mid]
+        wo_c = torch.where((down & (side > 0.5))[..., None], wo_c * wo_c.new_tensor([1.0, 1.0, -1.0]), wo_c)
+        pdf_c = torch.where(down, wo_c[..., 2].abs() / math.pi * 0.5, pdf_c)
+        on = r.cos_on[mid]
+        wo = torch.where(on[..., None], wo_c, wo)
+        pdf = torch.where(on, pdf_c, pdf)
+    for i in r.cb_sample:
+        wo_b, pdf_b = matballs[i].sample(rnd.ball[i], wi_l)
         is_b = mat_id == MAT_BALL + i
         wo = torch.where(is_b[..., None], wo_b, wo)
         pdf = torch.where(is_b, pdf_b, pdf)
+    if r.sph is not None:
+        from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_sample_routed
+
+        g = r.sph_of[mid]
+        if need is not None:
+            g = torch.where(need, g, -1)
+        rt = route_rows(g, len(r.sph_balls), "rows.routed_draw")
+        seeds, row0 = _seeds([rnd.ball[i] for i in r.sph_balls])
+        wo_b, pdf_b = neural_sample_routed(r.sph_nb, r.sph, seeds, rt.slot_row + row0, rt.tile_ball,
+                                           rt.gather(wi_l))
+        wo, pdf = rt.scatter(wo_b, wo), rt.scatter(pdf_b, pdf)
     return wo, pdf
 
 
-def _transmissive_mask(matballs: tuple, mat_id):
+def _transmissive_mask(matballs: Matballs, mat_id):
+    r = matballs.router
+    if r is not None:
+        return r.trans[mat_id.long()]
     m = torch.zeros(mat_id.shape, dtype=torch.bool, device=mat_id.device)
     for i, mb in enumerate(matballs):
         if mb.transmissive:
@@ -225,7 +523,10 @@ def _transmissive_mask(matballs: tuple, mat_id):
     return m
 
 
-def _ball_filter(matballs: tuple, mat_id, w_rgb):
+def _ball_filter(matballs: Matballs, mat_id, w_rgb):
+    r = matballs.router
+    if r is not None and r.clamp is not None:  # every ball clamps the luminance of f / pdf
+        return luminance_clamp(w_rgb, r.clamp[mat_id.long()])
     out = w_rgb
     for i, mb in enumerate(matballs):
         out = torch.where((mat_id == MAT_BALL + i)[..., None], mb.weight_filter(w_rgb), out)
@@ -242,8 +543,8 @@ def _bounce_body(accel: Union[BVH8, BVH], env: EnvMap, lights: torch.Tensor, sta
     of each (a profiler records a CUDA event there; nothing else changes).
     While spans record, the counters `rows.bounce_in` and `rows.alive_in`
     add the rows the wavefront carries in and those of them alive."""
-    matballs = matball
     ro, rd, px, L, beta, alive, prev_pdf = state
+    matballs = as_matballs(matball, ro.device)
     n = ro.shape[0]
     if trace.enabled():
         trace.count("rows.bounce_in", n)
@@ -286,8 +587,8 @@ def _bounce_body(accel: Union[BVH8, BVH], env: EnvMap, lights: torch.Tensor, sta
         d_env, le_nee, pdf_e = sample_env(env, rnd.u_nee)
     with trace.stage("bounce.nee_eval_pdf", mark):
         wo_nee_l = to_local(n_sh, t, bt, d_env)
-        f_nee, pdf_b_at_nee = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_nee_l)
         nee_cand = alive & (pdf_e > 1e-9) & ((wo_nee_l[..., 2] > 0) | trans_mask)
+        f_nee, pdf_b_at_nee = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_nee_l, need=nee_cand)
     with trace.stage("bounce.nee_shadow", mark):
         occ, tr = _occl(accel, offset(wo_nee_l), d_env, torch.full((n,), 1e6, device=ro.device), nee_cand)
         truncated = truncated | tr
@@ -318,12 +619,12 @@ def _bounce_body(accel: Union[BVH8, BVH], env: EnvMap, lights: torch.Tensor, sta
     # proxy shared by the NEE weight and the env-hit weight keeps the
     # weights summing to 1, so MIS stays unbiased
     with trace.stage("bounce.bsdf_sample", mark):
-        wo_l, pdf_b = _shade_sample(matballs, rnd, mat_id, wi_l)
+        wo_l, pdf_b = _shade_sample(matballs, rnd, mat_id, wi_l, need=alive)
     with trace.stage("bounce.bsdf_eval_pdf", mark):
-        f_b, pdf_mis = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_l)
+        ok = alive & (pdf_b > 1e-9) & ((wo_l[..., 2] > 0) | trans_mask)
+        f_b, pdf_mis = _shade_eval_pdf(matballs, mat_id, uv, wi_l, wo_l, need=ok)
     with trace.stage("bounce.update", mark):
         is_ball = mat_id >= MAT_BALL
-        ok = alive & (pdf_b > 1e-9) & ((wo_l[..., 2] > 0) | trans_mask)
         w_rgb = f_b / torch.clamp(pdf_b, min=1e-9)[..., None]
         w_rgb = torch.where(is_ball[..., None], _ball_filter(matballs, mat_id, w_rgb), w_rgb)
         beta = torch.where(ok[..., None], beta * w_rgb, beta)
@@ -379,7 +680,7 @@ def render_pass(scene: Scene, matball, gen: torch.Generator, *, spp_chunk: int =
     global draws, and every rank returns the whole film; `truncated` is this
     rank's. Without one, the block is the whole wavefront."""
     with trace.span("render.pass"):
-        matballs = _as_tuple(matball)
+        matballs = as_matballs(matball, gen.device)
         w, h = scene.camera.width, scene.camera.height
         n = w * h * spp_chunk
         r0, m = (0, n) if mesh is None else mesh.block(n)
@@ -421,7 +722,7 @@ def render(scene: Scene, matball, seed: int = 0, spp: int = 512, spp_chunk: int 
         img_sum = torch.zeros((h, w, 3), device=device)
         cnt_sum = torch.zeros((h, w), device=device)
         truncated = torch.zeros((), dtype=torch.bool, device=device)
-        matballs = _as_tuple(matball)
+        matballs = as_matballs(matball, device)
         for _ in range(max(spp // spp_chunk, 1)):
             img, cnt, tr = render_pass(scene, matballs, gen, spp_chunk=spp_chunk, max_depth=max_depth, mesh=mesh)
             img_sum += img
@@ -443,7 +744,7 @@ def measured_matball(brdf, firefly_clamp: float = 30.0) -> MatballFns:
         sample=lambda u, wi: sample_brdf(brdf, u, wi),
         eval=lambda wi, wo: eval_brdf(brdf, wi, wo),
         eval_pdf=lambda wi, wo: eval_pdf_brdf(brdf, wi, wo),
-        weight_filter=_luminance_clamp(firefly_clamp),
+        **_filtered(BallRoute("other", firefly_clamp)),
     )
 
 
@@ -452,23 +753,29 @@ def neural_matball(nb) -> MatballFns:
     seed from the bounce's generator), measured eval. eval_pdf is the
     MEASURED fused (f, pdf), the MIS proxy (see the note in `_bounce_body`)."""
     from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import eval_pdf_brdf
-    from bsdf_diffusion_sampling_tpu_torch.render.neural import firefly_filter, neural_eval, neural_sample
+    from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_eval, neural_sample
 
     return MatballFns(
         draw=lambda gen, n: draw_seed(gen),
         sample=lambda rand, wi: neural_sample(nb, rand, wi),
         eval=lambda wi, wo: neural_eval(nb, wi, wo),
         eval_pdf=lambda wi, wo: eval_pdf_brdf(nb.brdf, wi, wo),
-        weight_filter=lambda w: firefly_filter(nb, w),
+        **_filtered(BallRoute("other", nb.firefly_clamp)),
     )
 
 
-def _luminance_clamp(firefly_clamp: float):
-    def clamp(w_rgb):
-        lum = 0.2126 * w_rgb[..., 0] + 0.7152 * w_rgb[..., 1] + 0.0722 * w_rgb[..., 2]
-        return torch.where((lum < firefly_clamp)[..., None], w_rgb, 0.0)
+def luminance_clamp(w_rgb: torch.Tensor, clamp) -> torch.Tensor:
+    """The firefly policy of every matball: zero a sample whose luminance of
+    f / pdf reaches `clamp` (a number, or one a row)
+    (`brdf_measured_disk.py:97-100`)."""
+    lum = 0.2126 * w_rgb[..., 0] + 0.7152 * w_rgb[..., 1] + 0.0722 * w_rgb[..., 2]
+    return torch.where((lum < clamp)[..., None], w_rgb, 0.0)
 
-    return clamp
+
+def _filtered(route: BallRoute) -> dict:
+    """A matball's `route` and the firefly filter of its clamp: the one
+    clamp the routed dispatch applies too (`_ball_filter`)."""
+    return {"weight_filter": lambda w: luminance_clamp(w, route.clamp), "route": route}
 
 
 def _table_eval(mat, albedo, device):
@@ -514,9 +821,9 @@ def principled_matball(mat, albedo=(1.0, 1.0, 1.0), firefly_clamp: float = 3.5, 
         draw=lambda gen, n: (_uniform(gen, (n, 2)), _uniform(gen, (n,))),
         sample=sample,
         eval=_table_eval(mat, albedo, device),
-        weight_filter=_luminance_clamp(firefly_clamp),
         pdf=pdf,
         transmissive=transmits,
+        **_filtered(BallRoute("table", firefly_clamp, mat, tuple(albedo))),
     )
 
 
@@ -525,13 +832,13 @@ def neural_matball_sphere(nb, mat, albedo=(1.0, 1.0, 1.0)) -> MatballFns:
     draws with a kernel seed from the bounce's generator) and the table
     material's analytic eval times the albedo. It has no fused eval_pdf, so
     MIS queries the neural pdf at the NEE and at the sampled direction."""
-    from bsdf_diffusion_sampling_tpu_torch.render.neural import firefly_filter, neural_pdf, neural_sample
+    from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_pdf, neural_sample
 
     return MatballFns(
         draw=lambda gen, n: draw_seed(gen),
         sample=lambda rand, wi: neural_sample(nb, rand, wi),
         eval=_table_eval(mat, albedo, nb.v_params[0]["w"].device),
-        weight_filter=lambda w: firefly_filter(nb, w),
         pdf=lambda wi, wo: neural_pdf(nb, wi, wo),
         transmissive=True,
+        **_filtered(BallRoute("sphere", nb.firefly_clamp, mat, tuple(albedo), nb)),
     )

@@ -17,7 +17,10 @@
 Sample and pdf run through the fused kernels of `ops/fused_ode.py` on the
 card (K1/K2 disk, K4, K2s and K3 spherical; the in-kernel Philox draw when given
 a `torch.Generator` or a seed), and through their plain versions for CPU
-tensors.
+tensors. `neural_sample_routed` and `neural_pdf_routed` draw and query for
+the rows of many full-sphere samplers at once, through the routed K4 and
+K2s, each row with its own sampler's weights (`render/integrator.py` routes
+a scene's matball rows to them).
 
 All functions take LOCAL (shading-frame) directions, batched (N, 3).
 """
@@ -41,10 +44,13 @@ from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
 from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import (
     BASE_COLS,
     PackedWeights,
+    StackedWeights,
     fused_pdf_disk,
     fused_pdf_spherical,
+    fused_pdf_spherical_routed,
     fused_sample_pdf_disk,
     fused_sample_pdf_spherical,
+    fused_sample_pdf_spherical_routed,
     fused_transport_packed,
     prepack_disk,
     prepack_spherical,
@@ -143,20 +149,38 @@ def neural_sample(
     with trace.span("sampler.draw"):
         cond = encode_condition(_wi_coords(nb, wi_local), nb.cfg)
         x, pdf = _sample_x_pdf(nb, generator_or_eps, wi_local, cond)
-        if nb.domain == "disk":
-            valid = (x * x).sum(-1) <= nb.disk_valid_r2  # `brdf_measured_disk.py:69-71`
-            wo = disk_to_cart(x)
-            pdf_sa = pdf * torch.clamp(wo[..., 2], min=0.0)  # `:82`
-        else:
-            theta = x[..., 0]
-            sin_t = torch.sin(theta)
-            # hemisphere for BRDFs, the full sphere for transmissive BSDFs
-            theta_max = math.pi if nb.domain == "sphere_full" else math.pi / 2
-            valid = (sin_t > nb.pole_sin_eps) & (theta > 0) & (theta < theta_max)
-            wo = spher_to_cart(theta, x[..., 1])
-            pdf_sa = pdf * _pole_jacobian(nb, sin_t)
-        valid &= wi_local[..., 2] > 0
-        return wo, torch.where(valid, torch.clamp(pdf_sa, min=0.0), 0.0)
+        return _solid_angle_draw(nb, x, pdf, wi_local)
+
+
+def _solid_angle_draw(nb: NeuralBSDF, x, pdf, wi_local):
+    """(wo_local, pdf_solid_angle) of domain draws x with domain pdfs pdf."""
+    if nb.domain == "disk":
+        valid = (x * x).sum(-1) <= nb.disk_valid_r2  # `brdf_measured_disk.py:69-71`
+        wo = disk_to_cart(x)
+        pdf_sa = pdf * torch.clamp(wo[..., 2], min=0.0)  # `:82`
+    else:
+        theta = x[..., 0]
+        sin_t = torch.sin(theta)
+        # hemisphere for BRDFs, the full sphere for transmissive BSDFs
+        theta_max = math.pi if nb.domain == "sphere_full" else math.pi / 2
+        valid = (sin_t > nb.pole_sin_eps) & (theta > 0) & (theta < theta_max)
+        wo = spher_to_cart(theta, x[..., 1])
+        pdf_sa = pdf * _pole_jacobian(nb, sin_t)
+    valid &= wi_local[..., 2] > 0
+    return wo, torch.where(valid, torch.clamp(pdf_sa, min=0.0), 0.0)
+
+
+def neural_sample_routed(nb: NeuralBSDF, sw: StackedWeights, seeds: torch.Tensor, rows: torch.Tensor,
+                         tile_ball: torch.Tensor, wi_local: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`neural_sample` of routed slots: slot s drawn by sampler
+    tile_ball[s // ROUTE_TILE] of the stack `sw` (kernel seed seeds[ball])
+    as K4 over the whole wavefront draws wavefront row rows[s]. `nb` is one
+    of the stacked samplers: all share its domain (full sphere), widths, T
+    and pole guard."""
+    with trace.span("sampler.draw"):
+        cond = encode_condition(_wi_coords(nb, wi_local), nb.cfg)
+        x, pdf, _ = fused_sample_pdf_spherical_routed(sw, cond, rows, tile_ball, seeds, nb.T)
+        return _solid_angle_draw(nb, x, pdf, wi_local)
 
 
 def _pdf_query(nb: NeuralBSDF, x, omega_i, cond) -> torch.Tensor:
@@ -172,21 +196,41 @@ def _pdf_query(nb: NeuralBSDF, x, omega_i, cond) -> torch.Tensor:
     return torch.exp(get_base(nb.domain).log_prob(nb.base_params, x0, omega_i)) * det
 
 
+def _query_point(nb: NeuralBSDF, wo_local):
+    """(x, jac): the domain point of wo and its solid-angle jacobian."""
+    if nb.domain == "disk":
+        return wo_local[..., :2], torch.clamp(wo_local[..., 2], min=0.0)
+    x = cart_to_spher(wo_local)
+    return x, _pole_jacobian(nb, torch.sin(x[..., 0]))
+
+
+def _solid_angle_pdf(nb: NeuralBSDF, pdf, jac, wi_local, wo_local):
+    valid = wi_local[..., 2] > 0
+    if nb.domain != "sphere_full":
+        valid &= wo_local[..., 2] > 0
+    return torch.where(valid, torch.clamp(pdf * jac, min=0.0), 0.0)
+
+
 def neural_pdf(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -> torch.Tensor:
     with trace.span("sampler.pdf"):
         omega_i = _wi_coords(nb, wi_local)
         cond = encode_condition(omega_i, nb.cfg)
-        if nb.domain == "disk":
-            x = wo_local[..., :2]
-            jac = torch.clamp(wo_local[..., 2], min=0.0)
-        else:
-            x = cart_to_spher(wo_local)
-            jac = _pole_jacobian(nb, torch.sin(x[..., 0]))
+        x, jac = _query_point(nb, wo_local)
         pdf = _pdf_query(nb, x, omega_i, cond)
-        valid = wi_local[..., 2] > 0
-        if nb.domain != "sphere_full":
-            valid &= wo_local[..., 2] > 0
-        return torch.where(valid, torch.clamp(pdf * jac, min=0.0), 0.0)
+        return _solid_angle_pdf(nb, pdf, jac, wi_local, wo_local)
+
+
+def neural_pdf_routed(nb: NeuralBSDF, sw: StackedWeights, tile_ball: torch.Tensor, wi_local: torch.Tensor,
+                      wo_local: torch.Tensor) -> torch.Tensor:
+    """`neural_pdf` of routed slots by the routed K2s (the exact pdf), slot s
+    under sampler tile_ball[s // ROUTE_TILE] of the stack `sw`; `nb` as for
+    `neural_sample_routed`, with `pdf_exact`."""
+    with trace.span("sampler.pdf"):
+        cond = encode_condition(_wi_coords(nb, wi_local), nb.cfg)
+        x, jac = _query_point(nb, wo_local)
+        pdf, _ = fused_pdf_spherical_routed(sw, x.contiguous(), cond, tile_ball, nb.T,
+                                            newton_iters=nb.pdf_newton_iters)
+        return _solid_angle_pdf(nb, pdf, jac, wi_local, wo_local)
 
 
 def neural_eval(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -> torch.Tensor:
@@ -197,5 +241,6 @@ def neural_eval(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) 
 def firefly_filter(nb: NeuralBSDF, weight_rgb: torch.Tensor) -> torch.Tensor:
     """Zero the sample when luminance(f/pdf) exceeds the clamp
     (`brdf_measured_disk.py:97-100`)."""
-    lum = 0.2126 * weight_rgb[..., 0] + 0.7152 * weight_rgb[..., 1] + 0.0722 * weight_rgb[..., 2]
-    return torch.where((lum < nb.firefly_clamp)[..., None], weight_rgb, 0.0)
+    from bsdf_diffusion_sampling_tpu_torch.render.integrator import luminance_clamp
+
+    return luminance_clamp(weight_rgb, nb.firefly_clamp)

@@ -130,7 +130,16 @@ Phases, each of which raises on failure:
      times a bounce, K5 twice), the table array under a point light in gt
      and neural-sphere with K3's pdf (K4 12 and K3 24 times a bounce, K5
      three times); every ball seen and not black; each ball's share of
-     the wavefront's rays at depths 0 and 1;
+     the wavefront's rays at depths 0 and 1; (c) the routed K4 draw and K2s
+     query (`sph_draw_routed_kernel`, `sph_query_routed_kernel`), which a
+     scene of several full-sphere balls with the exact pdf runs: on every
+     routed row of the table array's 2^21 camera rays, and of empty and
+     one-row segments, against their plain versions (x and x0 2e-5, pdf
+     2e-4) and bit-equal to K4 over the whole wavefront on >= 99.9% of
+     rows; timed on the array's routing against their bound over its
+     routed rows; the table array rendered with the exact pdf through
+     `cli/render.py` (8 spp, depth 12): one routed draw and at most two
+     routed queries a bounce, no per-ball K4 or K2s, K5 three times;
   15. the trained full-sphere sampler: `cli/train.py` on table material 20
      (sphere_full, the 4 x 32 student and the 6 x 64 teacher) at the CLI's
      widths and batches, resuming phase 10's pretrain and flow-matching
@@ -156,8 +165,8 @@ Phases, each of which raises on failure:
      `multidevice` line, the `rest` line, the `quality` line, the `arrays`
      line, the `sphere_quality` line, the card's line, the `kernels` line
      (each kernel's row-offset status and its launches in the anisotropic,
-     trained-quality, array and full-sphere runs beside its numbers) and
-     the `ok` line.
+     trained-quality, array and full-sphere runs beside its numbers; the
+     routed kernels' rows from phase 14c) and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -222,6 +231,7 @@ from bsdf_diffusion_sampling_tpu_torch.render.integrator import (
     neural_matball_sphere,
     render,
     render_pass,
+    route_rows,
 )
 from bsdf_diffusion_sampling_tpu_torch.render.lambert import cosine_sample, make_frame, to_world
 from bsdf_diffusion_sampling_tpu_torch.render.neural import make_neural_bsdf, neural_pdf, neural_sample
@@ -2551,11 +2561,13 @@ def quality_phase(d: str, scenes: dict, images: dict, device) -> dict:
 # depth 12: the measured array under the sky envmap (gt, and neural-disk
 # with 12 reference-layout checkpoints: K1 12 times a bounce), the table
 # array under one point light (gt, and neural-sphere with K3's
-# reverse-Euler pdf through render(): K4 12 and K3 24 times a bounce). The
-# neural-sphere with the exact pdf (K2s, 24 times a bounce) is left out:
-# phase 8 renders it on one ball. Each matball runs on the whole wavefront; the
-# share of the rays that hit each ball is printed at depths 0 and 1. At 8
-# spp, cut from 16 to make room for phase 15.
+# reverse-Euler pdf through render(): K4 12 and K3 24 times a bounce, each
+# ball's sampler over the whole wavefront, since the routed kernels take the
+# exact pdf only; the table values come from one principled evaluation of
+# the routed rows). The neural-sphere with the exact pdf, which routes each
+# ball its own rows, is phase 14c's. The share of the rays that hit each
+# ball is printed at depths 0 and 1. At 8 spp, cut from 16 to make room for
+# phase 15.
 ARRAY_SPP = 8
 ARRAY_WANT = {"measured gt": {"traverse8": 2}, "measured neural-disk": {"traverse8": 2, "fused_sample_pdf_disk": 12},
               "table gt": {"traverse8": 3},
@@ -2660,6 +2672,110 @@ def array_phase(d: str, weights: dict, device) -> dict:
     log(f"  array renders: {json.dumps(out['renders'])}")
     log(f"  per-ball ray shares of the 2^20-ray wavefront: {json.dumps(out['ray_shares'])}")
     return out
+
+
+# Phase 14c: the routed K4 draw and K2s query. The table array's 2^21 camera
+# rays (512 x 512 x 8, routed by the ball each hits, 12 weight sets) and a
+# routing of empty and one-row segments, held by the benchmark's chip test's
+# check; both kernels timed on the array's routing, their bound from the
+# routed rows (the padding slots do no counted work); then the array
+# rendered with the exact pdf through cli/render.py, each kernel's launches
+# counted from 0 just before.
+ROUTED_WANT = {"traverse8": 3, "fused_sample_pdf_spherical_routed": 1}  # a bounce; 1 or 2 routed queries
+
+
+def routed_phase(d: str, weights: dict, device, name: str) -> dict:
+    from port_bench.tests import test_port_bench_routed_chip as rc
+
+    group, wi = rc._array_routing(device)
+    packs = [rc._nets(500 + b, device) for b in range(len(ARRAY_TABLE))]
+    errs = {"array": rc._check(group, wi, packs, device, "array routing")}
+    sizes = [0, 1, 127, 128, 129, 0, 1, 5000, 0]
+    seg = torch.cat([torch.full((k,), b) for b, k in enumerate(sizes)] + [torch.full((999,), -1)]).to(device)
+    seg = seg[torch.randperm(seg.numel(), device=device)]
+    wi_s = torch.nn.functional.normalize(torch.randn(seg.numel(), 3, device=device), dim=-1)
+    wi_s[:, 2] = wi_s[:, 2].abs() + 0.05
+    errs["segments"] = rc._check(seg, torch.nn.functional.normalize(wi_s, dim=-1),
+                                 [rc._nets(700 + b, device) for b in range(len(sizes))], device, "segments")
+    log(f"  routed kernels against their plain versions: {errs}")
+
+    # times on the array's routing: the bound counts the routed rows alone
+    sc = SamplerConfig()
+    T, it = sc.T_spherical, sc.pdf_newton_iters
+    cond = encode_condition(cart_to_spher(wi), SPH_CFG).contiguous()
+    rt = route_rows(group, len(packs))
+    sw = fo.stack_packed(packs)
+    seeds = torch.arange(1, len(packs) + 1, dtype=torch.int64, device=device) * 7919
+    cs = rt.gather(cond)
+    x, _, _ = fo.fused_sample_pdf_spherical_routed(sw, cs, rt.slot_row, rt.tile_ball, seeds, T)
+    n_routed = int((group >= 0).sum())
+    balls = [torch.nonzero(group == b)[:, 0] for b in range(len(packs))]
+    primal, tangent = net_macs(32, 4, 3)
+    once = fo.COND_DIM * 32 + fo.BASE_COLS * 16 + 16 * 4
+    eps = [torch.randn(r.numel(), 2, device=device) for r in balls]
+    tm = {"fused_sample_pdf_spherical_routed": timed(
+        "fused_sample_pdf_spherical_routed",
+        lambda: fo.fused_sample_pdf_spherical_routed(sw, cs, rt.slot_row, rt.tile_ball, seeds, T),
+        lambda: [fo.sample_pdf_spherical_plain(p, cond[r], T, eps=e) for p, r, e in zip(packs, balls, eps)],
+        n_routed * (once + T * (primal + 2 * tangent)), n_routed * (4 * fo.COND_DIM + 20), n_routed, name,
+        plain_runs=3)}
+    xq = [x[rt.dest[r]] for r in balls]
+    tm["fused_pdf_spherical_routed"] = timed(
+        "fused_pdf_spherical_routed",
+        lambda: fo.fused_pdf_spherical_routed(sw, x, cs, rt.tile_ball, T, newton_iters=it),
+        lambda: [fo.pdf_spherical_plain(p, q, cond[r], T, newton_iters=it) for p, q, r in zip(packs, xq, balls)],
+        n_routed * (once + T * (primal + (it + 1) * (primal + 2 * tangent))), n_routed * (8 + 4 * fo.COND_DIM + 12),
+        n_routed, name, plain_runs=3)
+    slots = int(rt.slot_row.numel())
+    used = int((rt.tile_ball >= 0).sum()) * fo.ROUTE_TILE
+    out = {"routing": {"rows": group.numel(), "routed_rows": n_routed, "slots": slots, "slots_in_segments": used,
+                       "pad_pct": 100.0 * (used - n_routed) / used,
+                       "rows_a_ball": [int(r.numel()) for r in balls]},
+           "errors": errs, "times": tm}
+
+    # the table array through cli/render.py with the exact pdf (the CLI's default)
+    film = dict(width=RENDER_RES, height=RENDER_RES, spp=ARRAY_SPP, max_depth=RENDER_DEPTH)
+    path = write_array_scene(os.path.join(d, "array_routed"), kind="table", point_light=ARRAY_LIGHT, **film)
+
+    def cli(spp, depth):  # (image, the CLI's render seconds)
+        return render_cli.main(["--scene", path, "--bsdf-dir", os.path.dirname(path), "--mode", "neural-sphere",
+                                "--checkpoint", weights["neural-sphere"], "--spp", str(spp), "--spp-chunk",
+                                str(RENDER_CHUNK), "--max-depth", str(depth), "--width", str(RENDER_RES),
+                                "--height", str(RENDER_RES), "--device", str(device),
+                                "--out", os.path.join(d, "array_routed_out")])
+
+    cli(RENDER_CHUNK, 2)  # warm-up
+    (img, dt), counts = counted(lambda: cli(ARRAY_SPP, RENDER_DEPTH))
+    bounces = (ARRAY_SPP // RENDER_CHUNK) * RENDER_DEPTH
+    q = counts["fused_pdf_spherical_routed"]
+    require(bool(np.isfinite(img).all()) and img.max() > 0, "array neural-sphere exact: non-finite or black image")
+    require(all(counts[k] == v * bounces for k, v in ROUTED_WANT.items()) and bounces <= q <= 2 * bounces
+            and all(counts[k] == 0 for k in fo.launches if k not in ROUTED_WANT and k != "fused_pdf_spherical_routed"),
+            f"array neural-sphere exact: launches {counts} in {bounces} bounces, expected {ROUTED_WANT} a bounce, "
+            "1 or 2 routed queries and nothing else")
+    out["render"] = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * ARRAY_SPP / dt / 1e6,
+                     "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
+    log(f"  routed render: {json.dumps(out['render'])}")
+    return out
+
+
+def routed_rows(routed: dict) -> list:
+    """The `kernels` line's rows of the routed draw and query (phase 14c)."""
+    rows = []
+    for k, (label, kind) in ROUTED_KERNELS.items():
+        r, e = routed["times"][k], routed["errors"]
+        x_key, pdf_key = ("x", "pdf") if kind == "draw" else ("qx0", "qpdf")
+        rows.append({"name": k, "label": label, "route": "cuda",
+                     "source": "bsdf_diffusion_sampling_tpu_torch/csrc/fused_sph.cu",
+                     "replaces": "none: the JAX package runs one sampler a ball over the whole wavefront",
+                     "launches": routed["render"]["launches"][k],
+                     "max_abs_err": max(v[x_key] for v in e.values()),
+                     "max_rel_err": max(v[pdf_key] for v in e.values()),
+                     "bit_equal_to_whole_launch_min": min(v["bit_equal"] for v in e.values()),
+                     **{m: r[m] for m in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_tf32_ms")},
+                     "library_ms": None, "precision": "3xtf32", "n": r["n"],
+                     "routing": routed["routing"]})
+    return rows
 
 
 # ------------------------------------------- the trained full-sphere sampler ----
@@ -3004,6 +3120,8 @@ KERNELS = {
                             "none: the JAX package runs bsdf_diffusion_sampling_tpu/ode/flow.py ode_pdf_exact under "
                             "XLA"),
 }
+ROUTED_KERNELS = {"fused_sample_pdf_spherical_routed": ("K4 routed: sph_draw_routed_kernel", "draw"),
+                  "fused_pdf_spherical_routed": ("K2s routed: sph_query_routed_kernel", "query")}
 SOURCES = {"fused_sample_pdf_disk": "fused_ode.cu", "fused_pdf_disk": "fused_ode.cu",
            "traverse8": "traverse8.cu", "fused_sample_pdf_spherical": "fused_sph.cu",
            "fused_transport": "fused_transport.cu", "fused_pdf_spherical": "fused_sph.cu"}
@@ -3257,6 +3375,15 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
         f"Mray-samples/s: ok ({arrays['seconds']:.1f} s)")
 
     t0 = time.time()
+    routed = routed_phase(d, weights, device, name)
+    routed["seconds"] = time.time() - t0
+    rt_ms = {k: round(v["ms"], 3) for k, v in routed["times"].items()}
+    log(f"[14c] the routed K4 draw and K2s query on {routed['routing']['routed_rows']} routed rows of the array: "
+        f"{rt_ms} ms; the table array with the exact pdf at {RENDER_RES}x{RENDER_RES}, {ARRAY_SPP} spp, depth "
+        f"{RENDER_DEPTH}: {routed['render']['mray_samples_per_s']:.3f} Mray-samples/s: ok "
+        f"({routed['seconds']:.1f} s)")
+
+    t0 = time.time()
     sphere = sphere_phase(d, scenes, images, training, device)
     sphere["seconds"] = time.time() - t0
     margin, rel = sphere["teacher_margin"]["trained"], {k: r["relmse_vs_gt"] for k, r in sphere["renders"].items()}
@@ -3329,6 +3456,7 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
             "training": sphere["run"]["k3_launches"] if k == "fused_transport" else 0,
             "checks": sphere["check_launches"][k],
             "renders": {label: r["launches"][k] for label, r in sphere["renders"].items()}}
+    rows += routed_rows(routed)
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
     log(f"[16] total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {"card": smi, **training}}))

@@ -25,7 +25,8 @@ generic transport (K3).
   `fused_pdf_spherical_routed` are K4 and K2s over the rows of many
   full-sphere samplers in one launch (`stack_packed` stacks their weights):
   the rows sorted by sampler in segments padded to `ROUTE_TILE` rows, one
-  sampler a block. A routed draw keys Philox on the row's wavefront index.
+  sampler a block (`route_rows` partitions them on the device). A routed
+  draw keys Philox on the row's wavefront index.
 
 The kernels are CUDA C++ (`csrc/fused_ode.cu`, `fused_sph.cu`,
 `fused_transport.cu`), built for `sm_90a` at first use and called through
@@ -65,6 +66,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import (
     EPS_SPHERICAL,
     disk_heads_from_enc,
@@ -560,6 +562,61 @@ def _check_routed(sw: StackedWeights, cond_enc: torch.Tensor, tile_ball: torch.T
         raise ValueError("tile_ball: expected a contiguous int32 tensor on the rows' device")
     _check(sw.flat, "stacked weights", tuple(sw.flat.shape), dev)
     return dev
+
+
+class Route(NamedTuple):
+    """Rows partitioned by group on the device: `slot_row` (C,) the
+    wavefront row of each slot (0 in a padding slot), slots sorted by group,
+    each group's segment padded to a multiple of ROUTE_TILE; `tile_ball`
+    (C / ROUTE_TILE,) int32 the group of each tile, -1 past the last
+    segment; `dest` (N,) each row's slot; `routed` (N,) which rows have one."""
+
+    slot_row: torch.Tensor
+    tile_ball: torch.Tensor
+    dest: torch.Tensor
+    routed: torch.Tensor
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """x's rows in slot order."""
+        return x.index_select(0, self.slot_row)
+
+    def scatter(self, y: torch.Tensor, default: torch.Tensor) -> torch.Tensor:
+        """Slot results y back in row order, `default` where a row has none."""
+        got = y.index_select(0, self.dest)
+        return torch.where(self.routed.reshape(-1, *(1,) * (y.ndim - 1)), got, default)
+
+
+def route_rows(group: torch.Tensor, n_groups: int, counter: str | None = None) -> Route:
+    """Partition the rows by `group` (N,) int64, -1 for a row routed to
+    none: a stable sort by group, then each group's rows in its own segment
+    of whole ROUTE_TILE tiles. The slot count C = N + n_groups (ROUTE_TILE -
+    1), rounded up to a tile, bounds every partition, so nothing is read on
+    the host; the tiles past the last segment are marked -1 for the kernels
+    to skip. While spans record, `counter` adds the routed rows and
+    `rows.routed_pad` the padding slots."""
+    with trace.span("sampler.route"):
+        n, dev = group.shape[0], group.device
+        tiles = -(-(n + n_groups * (ROUTE_TILE - 1)) // ROUTE_TILE)
+        c = tiles * ROUTE_TILE
+        routed = group >= 0
+        key = torch.where(routed, group, n_groups)
+        order = torch.argsort(key, stable=True)
+        sk = key[order]
+        # each group's first position in sorted order (the last entry n): counts without atomics
+        first = torch.searchsorted(sk, torch.arange(n_groups + 2, device=dev))
+        cnt = first[1:] - first[:-1]
+        padded = (cnt[:n_groups] + ROUTE_TILE - 1) // ROUTE_TILE * ROUTE_TILE
+        ends = torch.cumsum(padded, 0)
+        g = torch.clamp(sk, max=n_groups - 1)
+        slot = torch.where(sk < n_groups, ends[g] - padded[g] + torch.arange(n, device=dev) - first[sk], c)
+        dest = torch.empty_like(slot).scatter_(0, order, slot)
+        slot_row = torch.zeros(c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, order)[:c]
+        tile_ball = torch.searchsorted(ends, torch.arange(tiles, device=dev) * ROUTE_TILE, right=True)
+        tile_ball = torch.where(tile_ball < n_groups, tile_ball, -1).to(torch.int32)
+        if counter is not None and trace.enabled():
+            trace.count(counter, cnt[:n_groups].sum())
+            trace.count("rows.routed_pad", (padded - cnt[:n_groups]).sum())
+        return Route(slot_row, tile_ball, torch.clamp(dest, max=c - 1), routed)
 
 
 def fused_sample_pdf_spherical_routed(sw: StackedWeights, cond_enc: torch.Tensor, rows: torch.Tensor,

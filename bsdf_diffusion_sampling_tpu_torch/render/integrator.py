@@ -17,7 +17,10 @@ full-sphere neural sampler over that material, through the identical
 integrator. A transmissive matball lets NEE and BSDF-sampled directions go
 below its surface.
 
-A scene of one matball runs its callbacks on the whole wavefront. A scene
+A scene of one matball runs its callbacks on the whole wavefront; its
+`pdf` callback sees a wi below the surface on the rows whose pdf goes
+unused, so a full-sphere sampler (`render/neural.py::neural_pdf`) queries
+only the NEE candidates and the kept draws on the ball. A scene
 of `ROUTE_MIN_BALLS` or more routes each matball only its own rows, by the
 material id the ray hit (`_Router`): the full-sphere samplers' rows are
 partitioned by ball on the device (`route_rows`: sorted by ball, each
@@ -70,6 +73,7 @@ import torch
 from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.core.prng import RowSeed, draw_seed, root_generator
+from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import route_rows
 from bsdf_diffusion_sampling_tpu_torch.parallel.mesh import Mesh, all_reduce_
 from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
 from bsdf_diffusion_sampling_tpu_torch.render.envmap import EnvMap, eval_env, pdf_env, sample_env
@@ -237,63 +241,6 @@ def _albedo(mat_id, uv):
 # ------------------------------------------------------------------ routing
 
 
-class Route(NamedTuple):
-    """Rows partitioned by group on the device: `slot_row` (C,) the
-    wavefront row of each slot (0 in a padding slot), slots sorted by group,
-    each group's segment padded to a multiple of ROUTE_TILE; `tile_ball`
-    (C / ROUTE_TILE,) int32 the group of each tile, -1 past the last
-    segment; `dest` (N,) each row's slot; `routed` (N,) which rows have one."""
-
-    slot_row: torch.Tensor
-    tile_ball: torch.Tensor
-    dest: torch.Tensor
-    routed: torch.Tensor
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """x's rows in slot order."""
-        return x.index_select(0, self.slot_row)
-
-    def scatter(self, y: torch.Tensor, default: torch.Tensor) -> torch.Tensor:
-        """Slot results y back in row order, `default` where a row has none."""
-        got = y.index_select(0, self.dest)
-        return torch.where(self.routed.reshape(-1, *(1,) * (y.ndim - 1)), got, default)
-
-
-def route_rows(group: torch.Tensor, n_groups: int, counter: str | None = None) -> Route:
-    """Partition the rows by `group` (N,) int64, -1 for a row routed to
-    none: a stable sort by group, then each group's rows in its own segment
-    of whole ROUTE_TILE tiles. The slot count C = N + n_groups (ROUTE_TILE -
-    1), rounded up to a tile, bounds every partition, so nothing is read on
-    the host; the tiles past the last segment are marked -1 for the kernels
-    to skip. While spans record, `counter` adds the routed rows and
-    `rows.routed_pad` the padding slots."""
-    from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import ROUTE_TILE
-
-    with trace.span("sampler.route"):
-        n, dev = group.shape[0], group.device
-        tiles = -(-(n + n_groups * (ROUTE_TILE - 1)) // ROUTE_TILE)
-        c = tiles * ROUTE_TILE
-        routed = group >= 0
-        key = torch.where(routed, group, n_groups)
-        order = torch.argsort(key, stable=True)
-        sk = key[order]
-        # each group's first position in sorted order (the last entry n): counts without atomics
-        first = torch.searchsorted(sk, torch.arange(n_groups + 2, device=dev))
-        cnt = first[1:] - first[:-1]
-        padded = (cnt[:n_groups] + ROUTE_TILE - 1) // ROUTE_TILE * ROUTE_TILE
-        ends = torch.cumsum(padded, 0)
-        g = torch.clamp(sk, max=n_groups - 1)
-        slot = torch.where(sk < n_groups, ends[g] - padded[g] + torch.arange(n, device=dev) - first[sk], c)
-        dest = torch.empty_like(slot).scatter_(0, order, slot)
-        slot_row = torch.zeros(c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, order)[:c]
-        tile_ball = torch.searchsorted(ends, torch.arange(tiles, device=dev) * ROUTE_TILE, right=True)
-        tile_ball = torch.where(tile_ball < n_groups, tile_ball, -1).to(torch.int32)
-        if counter is not None and trace.enabled():
-            trace.count(counter, cnt[:n_groups].sum())
-            trace.count("rows.routed_pad", (padded - cnt[:n_groups]).sum())
-        return Route(slot_row, tile_ball, torch.clamp(dest, max=c - 1), routed)
-
-
 class _Router(NamedTuple):
     """A ball set's routing tables on one device (`_router`).
     The (MAT_BALL + balls,) lookups by material id: `trans` transmissive,
@@ -322,10 +269,9 @@ class _Router(NamedTuple):
 
 
 def _sph_groupable(nb) -> bool:
-    from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import K4_NET
-
-    return (nb is not None and nb.domain == "sphere_full" and nb.pdf_exact
-            and (nb.packed.hidden, nb.packed.layers) == K4_NET)
+    """An exact-pdf full-sphere sampler that the routed kernels take: one
+    of K4's widths, which `make_neural_bsdf` gives a one-sampler stack."""
+    return nb is not None and nb.pdf_exact and nb.stack is not None
 
 
 def _router(matballs: tuple, device) -> _Router | None:
@@ -417,21 +363,30 @@ def _shade_eval(matballs: Matballs, mat_id, uv, wi_l, wo_l):
     return out
 
 
+def _below_unless(keep, wi_l):
+    """wi_l on the rows of `keep`, (0, 0, -1) on the others."""
+    down = wi_l.new_zeros(3)
+    down[2:].fill_(-1.0)  # a kernel given the value: `down[2] = -1.0` copies it from the host, a stream sync
+    return torch.where(keep[..., None], wi_l, down)
+
+
 def _shade_eval_pdf(matballs: Matballs, mat_id, uv, wi_l, wo_l, need=None):
     """(f*cos, pdf) for all materials, each matball's from its fused
     eval_pdf where it has one. Routed, the full-sphere samplers' pdfs are
-    queried only on the rows of `need` (every row without it)."""
+    queried only on the rows of `need` (every row without it). Unrouted, a
+    `pdf` callback sees wi = (0, 0, -1), below the surface, on the rows
+    outside `need` and its ball: a full-sphere sampler queries none of them."""
     f = diffuse_eval(_albedo(mat_id, uv), wo_l)
     pdf = diffuse_pdf(wo_l)
     r = matballs.router
     if r is not None:
         return _routed_eval_pdf(r, matballs, mat_id, wi_l, wo_l, need, f, pdf)
     for i, mb in enumerate(matballs):
+        is_b = mat_id == MAT_BALL + i
         if mb.eval_pdf is not None:
             fb, pb = mb.eval_pdf(wi_l, wo_l)
         else:
-            fb, pb = mb.eval(wi_l, wo_l), mb.pdf(wi_l, wo_l)
-        is_b = mat_id == MAT_BALL + i
+            fb, pb = mb.eval(wi_l, wo_l), mb.pdf(wi_l if need is None else _below_unless(need & is_b, wi_l), wo_l)
         f = torch.where(is_b[..., None], fb, f)
         pdf = torch.where(is_b, pb, pdf)
     return f, pdf

@@ -11,7 +11,9 @@
   forward map with `pdf_exact` (the default), else reverse Euler. Spherical:
   with `pdf_exact` the same Newton inverse (K2s; the JAX package leaves
   `ode_pdf_exact` to XLA), else the K3 reverse transport times p0. The
-  full-sphere pdf does not require wo_z > 0.
+  full-sphere pdf does not require wo_z > 0. A full-sphere sampler of K4's
+  widths queries only the rows whose wi is above the surface (the others'
+  pdf is 0), routed to the routed K2s as one group with no host sync.
 - `neural_eval`: the ground-truth measured BRDF `brdf` (f * cos).
 
 Sample and pdf run through the fused kernels of `ops/fused_ode.py` on the
@@ -43,6 +45,7 @@ from bsdf_diffusion_sampling_tpu_torch.models.base_density import get_base, sphe
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
 from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import (
     BASE_COLS,
+    K4_NET,
     PackedWeights,
     StackedWeights,
     fused_pdf_disk,
@@ -54,6 +57,8 @@ from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import (
     fused_transport_packed,
     prepack_disk,
     prepack_spherical,
+    route_rows,
+    stack_packed,
 )
 
 DOMAINS = ("disk", "spherical", "sphere_full")
@@ -72,6 +77,7 @@ class NeuralBSDF(NamedTuple):
     pole_sin_eps: float = 5e-5
     pdf_exact: bool = True  # Newton exact-inverse pdf queries
     pdf_newton_iters: int = 2
+    stack: StackedWeights | None = None  # `packed` alone, for the routed K2s (full sphere, K4's widths)
 
 
 def make_neural_bsdf(
@@ -93,6 +99,8 @@ def make_neural_bsdf(
     base_params = params_from_jax(base_params, device)
     base_params.setdefault("pe_bands", cfg.base_pe_bands)
     disk = domain == "disk"
+    packed = prepack_disk(v_params, base_params) if disk else prepack_spherical(v_params, base_params)
+    routed = domain == "sphere_full" and (packed.hidden, packed.layers) == K4_NET
     return NeuralBSDF(
         domain=domain,
         cfg=cfg,
@@ -101,11 +109,12 @@ def make_neural_bsdf(
         brdf=None if brdf is None else brdf.to(device),
         T=sampler_cfg.T_disk if disk else sampler_cfg.T_spherical,
         firefly_clamp=sampler_cfg.firefly_clamp_sphere if domain == "sphere_full" else sampler_cfg.firefly_clamp_disk,
-        packed=prepack_disk(v_params, base_params) if disk else prepack_spherical(v_params, base_params),
+        packed=packed,
         disk_valid_r2=sampler_cfg.disk_valid_r2,
         pole_sin_eps=sampler_cfg.pole_sin_eps,
         pdf_exact=sampler_cfg.pdf_exact,
         pdf_newton_iters=sampler_cfg.pdf_newton_iters,
+        stack=stack_packed([packed]) if routed else None,
     )
 
 
@@ -212,6 +221,10 @@ def _solid_angle_pdf(nb: NeuralBSDF, pdf, jac, wi_local, wo_local):
 
 
 def neural_pdf(nb: NeuralBSDF, wi_local: torch.Tensor, wo_local: torch.Tensor) -> torch.Tensor:
+    if nb.pdf_exact and nb.stack is not None:  # the rows above the surface alone: below it the pdf is 0
+        rt = route_rows(torch.where(wi_local[..., 2] > 0, 0, -1), 1, "rows.routed_pdf")
+        pdf = neural_pdf_routed(nb, nb.stack, rt.tile_ball, rt.gather(wi_local), rt.gather(wo_local))
+        return rt.scatter(pdf, pdf.new_zeros(()))
     with trace.span("sampler.pdf"):
         omega_i = _wi_coords(nb, wi_local)
         cond = encode_condition(omega_i, nb.cfg)

@@ -47,8 +47,8 @@ Phases, each of which raises on failure:
      reverse-Euler pdf), with the kernels' launch counts read around each;
   8. the render paths through `cli/render.py` at 512 x 512, depth 12 (after
      a short warm-up render in each): gt, neural-disk and neural-spherical on
-     the measured scene at 64 spp; gt and neural-sphere (the exact pdf:
-     K2s twice a bounce) on the table scene at 16 spp; then one
+     the measured scene at 64 spp; gt and neural-sphere (the exact pdf: the
+     routed K2s twice a bounce) on the table scene at 16 spp; then one
      neural-sphere render with the reverse-Euler pdf
      (K3) through `render()`; the launch counts read around each render,
      and checks of the images;
@@ -821,7 +821,9 @@ def main_path(nb, device) -> dict:
 def sph_sampler_path(nbs: dict, device) -> dict:
     """Phase 7, spherical: one bounce of neural_sample -> neural_pdf at
     N_MAIN for each pdf route, counts around each: K4 once; K3 once with the
-    reverse-Euler pdf, K2s once with the exact one."""
+    reverse-Euler pdf, the routed K2s once with the exact one (the rows above
+    the surface, one group); then, for the exact one, the whole-row K2s on
+    the same queries, which the routed query must give back."""
     gen = root_generator(SEED + 14, device)
     out = {}
     for route, nb in nbs.items():
@@ -840,9 +842,18 @@ def sph_sampler_path(nbs: dict, device) -> dict:
         require(counts["fused_sample_pdf_spherical"] == 1 and counts["fused_sample_pdf_disk"] == 0,
                 "K4 not launched once (or K1 launched) for one spherical draw")
         require(counts["fused_transport"] == (1 if route == "reverse" else 0), "K3 launches off for the pdf route")
-        require(counts["fused_pdf_spherical"] == (1 if route == "exact" else 0), "K2s launches off for the pdf route")
+        require(counts["fused_pdf_spherical_routed"] == (1 if route == "exact" else 0) and
+                counts["fused_pdf_spherical"] == 0, "K2s launches off for the pdf route")
         if route == "exact":
             require(s["gap"]["median"] < TOL_CONTRACT_MEDIAN, "exact spherical pdf disagrees with the sampler's pdf")
+            fo.reset_launches()
+            whole = neural_pdf(nb._replace(stack=None), wi, wo)
+            s["k2s_launches"] = fo.launches["fused_pdf_spherical"]
+            s["routed_vs_whole_row"] = {"max_rel": max_rel(pdf_q, whole),
+                                        "equal": float((pdf_q == whole).float().mean())}
+            log(f"spherical exact pdf, routed against whole-row K2s: {s['routed_vs_whole_row']}")
+            require(s["k2s_launches"] == 1 and s["routed_vs_whole_row"]["max_rel"] < TOL_SPH_PDF_REL,
+                    "the routed exact query disagrees with the whole-row K2s")
         out[route] = s
     return out
 
@@ -1021,7 +1032,7 @@ K3_RENDER = ("table", "neural-sphere K3", TABLE_SPP)  # the reverse-Euler pdf, t
 # launches a bounce each mode must show (K5 at least 2, the others exactly)
 EXPECTED = {"gt": {}, "neural-disk": {"fused_sample_pdf_disk": 1},
             "neural-spherical": {"fused_sample_pdf_spherical": 1},
-            "neural-sphere": {"fused_sample_pdf_spherical": 1, "fused_pdf_spherical": 2},
+            "neural-sphere": {"fused_sample_pdf_spherical": 1, "fused_pdf_spherical_routed": 2},
             "neural-sphere K3": {"fused_sample_pdf_spherical": 1, "fused_transport": 2}}
 
 
@@ -3301,7 +3312,7 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
 
     t0 = time.time()
     counts = main_path(nb, device)
-    sph_sampler_path(nb_sph, device)
+    sph_path = sph_sampler_path(nb_sph, device)
     log(f"[7] sampler paths: {BOUNCES} disk bounces and one spherical bounce a pdf route of neural_sample -> "
         f"neural_pdf at N={N_MAIN}: ok ({time.time() - t0:.1f} s)")
 
@@ -3401,7 +3412,8 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     # set to 0 just before: K1 from the neural-disk render, K4 from the
     # neural-spherical render, K3 from the neural-sphere render with the
     # reverse-Euler pdf, K5 from the neural-disk render, K2 from the disk
-    # sampler path, K2s from the neural-sphere render with the exact pdf.
+    # sampler path, K2s from the spherical sampler path's whole-row query
+    # (a render queries the exact pdf through the routed K2s).
     # max_abs_err: x and x0 (K1, K2, K4, K2s), x (K3), t (K5);
     # max_rel_err: the pdf (K1, K2, K4, K2s), the det (K3), t (K5).
     render_counts = {label: r["launches"] for label, (_, r) in images.items()}
@@ -3411,7 +3423,7 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
                 "fused_sample_pdf_spherical":
                     render_counts["measured neural-spherical"]["fused_sample_pdf_spherical"],
                 "fused_transport": render_counts["table neural-sphere K3"]["fused_transport"],
-                "fused_pdf_spherical": render_counts["table neural-sphere"]["fused_pdf_spherical"]}
+                "fused_pdf_spherical": sph_path["exact"]["k2s_launches"]}
     errs["traverse8"] = {"max_abs_err": max(r["t_abs_max"] for r in k5),
                          "max_rel_err": max(r["t_rel_max"] for r in k5)}
     rows = []

@@ -3,12 +3,11 @@ the JAX package's `render/integrator.py`.
 
 Every bounce runs on the whole wavefront at once: closest hits through the
 8-wide BVH (kernel K5 on the card, its plain walker on the CPU), or through
-the binary BVH's lockstep walk for a scene built with `wide=False`, masked
-material dispatch (no queue compaction), NEE against the envmap and point
-lights with shadow rays (K5's any-hit variant), BSDF sampling on every
-matball in one batch (kernel K1 for a neural disk matball), MIS by the
-power heuristic, and Russian roulette from depth RR_DEPTH. The film is a
-scatter-free segment sum over the sample-major ray layout.
+the binary BVH's lockstep walk for a scene built with `wide=False`, the
+matball dispatch below, NEE against the envmap and point lights with shadow
+rays (K5's any-hit variant), BSDF sampling, MIS by the power heuristic, and
+Russian roulette from depth RR_DEPTH. The film is a scatter-free segment sum
+over the sample-major ray layout.
 
 The matball material is pluggable (`MatballFns`): ground-truth measured
 RGL importance sampling, the neural ODE sampler (disk, spherical), the
@@ -17,22 +16,26 @@ full-sphere neural sampler over that material, through the identical
 integrator. A transmissive matball lets NEE and BSDF-sampled directions go
 below its surface.
 
-A scene of one matball runs its callbacks on the whole wavefront; its
-`pdf` callback sees a wi below the surface on the rows whose pdf goes
-unused, so a full-sphere sampler (`render/neural.py::neural_pdf`) queries
-only the NEE candidates and the kept draws on the ball. A scene
-of `ROUTE_MIN_BALLS` or more routes each matball only its own rows, by the
-material id the ray hit (`_Router`): the full-sphere samplers' rows are
-partitioned by ball on the device (`route_rows`: sorted by ball, each
-ball's segment padded to the routed kernels' tile; no host sync) for one
-routed K4 draw and routed K2s queries over all of them, and only over the
-rows that use the result (the live rows for the draw, the NEE candidates
-and the kept draws for the pdf); the table materials' values come from one
-principled evaluation with each row's parameters gathered; the two-sided
-cosine draws of table balls from one draw with each row's uniforms
-gathered. Balls of other kinds (measured, neural disk) still run their
-callbacks on the whole wavefront, selected by material id. A row the
-routing leaves out holds the diffuse plane's draw and pdf.
+One dispatch serves every scene: the routing tables of its matballs
+(`_Router`, built once a render by `_router`), looked up by the material id
+each ray hit. They hold each ball's transmissive flag and firefly clamp
+(`BallRoute.clamp`), and say which balls the scene computes in groups and
+which run their callbacks. A scene of fewer than `ROUTE_MIN_BALLS` balls
+groups none. A callback ball runs on the whole wavefront and is kept by
+`torch.where`. Its `pdf` sees wi = (0, 0, -1), below the surface, on the
+rows outside its ball and outside the rows that use the pdf (the NEE
+candidates, the kept draws), so a full-sphere sampler
+(`render/neural.py::neural_pdf`) queries none of them. In a scene of
+`ROUTE_MIN_BALLS` or more balls, the groups are these. The full-sphere
+samplers' rows are partitioned by ball on the device (`route_rows`: sorted
+by ball, each ball's segment padded to the routed kernels' tile; no host
+sync) for one routed K4 draw and routed K2s queries over all of them, and
+only over the rows that use the result (the live rows for the draw, the NEE
+candidates and the kept draws for the pdf). The table materials' values come
+from one principled evaluation with each row's parameters gathered. The
+two-sided cosine draws of table balls come from one draw with each row's
+uniforms gathered. A row the routing leaves out holds the diffuse plane's
+draw and pdf.
 
 A bounce takes its random numbers as explicit tensors (`BounceRandoms`,
 drawn by `draw_bounce` from one `torch.Generator`), so a test can hand it
@@ -60,7 +63,6 @@ check and the image's copy to the host. A routing is the span
 the rows the routed draw and queries compute, `rows.routed_pad` the slots
 that pad their segments to whole tiles.
 """
-
 from __future__ import annotations
 
 import math
@@ -70,10 +72,11 @@ from typing import Callable, NamedTuple, Union
 import numpy as np
 import torch
 
+from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import PrincipledParams, PrincipledRows, eval_principled_rows
 from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
 from bsdf_diffusion_sampling_tpu_torch.core.prng import RowSeed, draw_seed, root_generator
-from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import route_rows
+from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import route_rows, stack_packed
 from bsdf_diffusion_sampling_tpu_torch.parallel.mesh import Mesh, all_reduce_
 from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
 from bsdf_diffusion_sampling_tpu_torch.render.envmap import EnvMap, eval_env, pdf_env, sample_env
@@ -85,6 +88,13 @@ from bsdf_diffusion_sampling_tpu_torch.render.lambert import (
     make_frame,
     to_local,
     to_world,
+)
+from bsdf_diffusion_sampling_tpu_torch.render.neural import (
+    neural_eval,
+    neural_pdf,
+    neural_pdf_routed,
+    neural_sample,
+    neural_sample_routed,
 )
 from bsdf_diffusion_sampling_tpu_torch.render.scene import MAT_BALL, MAT_PLANE, Scene
 from bsdf_diffusion_sampling_tpu_torch.render.bvh import BVH, intersect
@@ -99,11 +109,11 @@ ROUTE_MIN_BALLS = 2  # matballs from which a scene routes each ball only its own
 
 
 class BallRoute(NamedTuple):
-    """What a scene of several matballs routes by, for one of them: `kind`
-    "table" (a material-table entry `mat` times `albedo`, drawn by the
-    two-sided cosine lobe), "sphere" (the same value, drawn and weighted by
-    the full-sphere sampler `nb`) or "other" (its callbacks); `clamp` the
-    firefly clamp on the luminance of f / pdf."""
+    """What the dispatch knows of one matball: `clamp` its firefly clamp on
+    the luminance of f / pdf; and what a scene of several balls groups it
+    by: `kind` "table" (a material-table entry `mat` times `albedo`, drawn
+    by the two-sided cosine lobe), "sphere" (the same value, drawn and
+    weighted by the full-sphere sampler `nb`) or "other" (its callbacks)."""
 
     kind: str
     clamp: float
@@ -115,13 +125,13 @@ class BallRoute(NamedTuple):
 class MatballFns(NamedTuple):
     """Local-frame material callbacks for one preview object. The MIS pdf
     comes from `eval_pdf` where it is given, else from `eval` and `pdf`.
-    `route` says what a routed scene may compute for the ball in place of
-    the callbacks; without it the ball runs its callbacks."""
+    `route` holds the ball's firefly clamp and what a scene of several
+    balls may compute for it in place of the callbacks; None stands for
+    `BallRoute("other", math.inf)`: no clamp, the callbacks."""
 
     draw: Callable  # (generator, n) -> the randoms one bounce's sample() takes
     sample: Callable  # (randoms, wi_local) -> (wo_local, pdf)
     eval: Callable  # (wi_local, wo_local) -> (N, 3) f*cos
-    weight_filter: Callable  # (rgb_weight) -> rgb_weight (firefly policy)
     pdf: Callable | None = None  # (wi_local, wo_local) -> (N,)
     eval_pdf: Callable | None = None  # (wi_local, wo_local) -> ((N, 3) f*cos, (N,) the MIS pdf)
     transmissive: bool = False  # a full-sphere BSDF: wo may go below the surface
@@ -165,10 +175,10 @@ def shard_randoms(rnd: BounceRandoms, r0: int, m: int) -> BounceRandoms:
 
 class Matballs(tuple):
     """A scene's matballs (slot i shades material id MAT_BALL + i) with
-    their routing tables `router` (`_router`: None below ROUTE_MIN_BALLS),
-    built once on one device by `as_matballs`."""
+    their routing tables `router` (`_router`), built once on one device by
+    `as_matballs`."""
 
-    router: _Router | None
+    router: _Router
 
 
 def as_matballs(matball, device) -> Matballs:
@@ -244,16 +254,16 @@ def _albedo(mat_id, uv):
 class _Router(NamedTuple):
     """A ball set's routing tables on one device (`_router`).
     The (MAT_BALL + balls,) lookups by material id: `trans` transmissive,
-    `clamp` the firefly clamp (None unless every ball has one); `cos_on` a
-    ball drawn by the two-sided cosine lobe; `sph_of` the ball's place in
-    the stacked samplers `sph` (-1 if none); `tab_of` its row of the
-    principled table `tab` and `tab_albedo` (-1 if none). The callback
-    balls: `cb_sample` draw by their `sample`, `cb_eval` take their value
-    from `eval`, `cb_pdf` their MIS pdf from `eval_pdf` (value too) or
-    `pdf`."""
+    `clamp` the firefly clamp (inf off the balls); `cos_on` a ball drawn by
+    the two-sided cosine lobe; `sph_of` the ball's place in the stacked
+    samplers `sph` (-1 if none); `tab_of` its row of the principled table
+    `tab` and `tab_albedo` (-1 if none). The callback balls: `cb_draw` draw
+    by their `sample` and weight by their `eval_pdf` or `pdf`, `cb_eval`
+    take their value from `eval` (from `eval_pdf` where they draw by
+    callback and have one)."""
 
     trans: torch.Tensor
-    clamp: torch.Tensor | None
+    clamp: torch.Tensor
     cos_on: torch.Tensor
     cos_balls: tuple
     sph_of: torch.Tensor
@@ -262,10 +272,9 @@ class _Router(NamedTuple):
     sph_nb: object  # one NeuralBSDF of the stack: domain, widths, T, iterations
     tab_of: torch.Tensor
     tab: object  # PrincipledRows or None
-    tab_albedo: torch.Tensor | None
-    cb_sample: tuple
+    tab_albedo: torch.Tensor
+    cb_draw: tuple
     cb_eval: tuple
-    cb_pdf: tuple
 
 
 def _sph_groupable(nb) -> bool:
@@ -274,36 +283,32 @@ def _sph_groupable(nb) -> bool:
     return nb is not None and nb.pdf_exact and nb.stack is not None
 
 
-def _router(matballs: tuple, device) -> _Router | None:
-    """The routing tables of `matballs` on `device`, None below
-    ROUTE_MIN_BALLS (the whole-wavefront dispatch). Full-sphere balls that
-    the routed kernels cannot take (not the exact pdf, other widths) run
-    their callbacks over the whole wavefront; so do all of them, with a
-    warning, where they differ in T, Newton iterations or encoding."""
-    if len(matballs) < ROUTE_MIN_BALLS:
-        return None
-    from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import PrincipledParams, PrincipledRows
-    from bsdf_diffusion_sampling_tpu_torch.ops.fused_ode import stack_packed
-
+def _router(matballs: tuple, device) -> _Router:
+    """The routing tables of `matballs` on `device`. Below ROUTE_MIN_BALLS
+    they group nothing: every ball runs its callbacks over the whole
+    wavefront. From it, full-sphere balls that the routed kernels cannot
+    take (not the exact pdf, other widths) run their callbacks; so do all
+    of them, with a warning, where they differ in T, Newton iterations or
+    encoding."""
     routes = [mb.route or BallRoute("other", math.inf) for mb in matballs]
-    sph = [i for i, r in enumerate(routes) if r.kind == "sphere" and _sph_groupable(r.nb)]
+    kinds = [r.kind if len(routes) >= ROUTE_MIN_BALLS else "other" for r in routes]
+    sph = [i for i, (k, r) in enumerate(zip(kinds, routes)) if k == "sphere" and _sph_groupable(r.nb)]
     same = {(r.nb.cfg, r.nb.T, r.nb.pdf_newton_iters, r.nb.pole_sin_eps) for r in (routes[i] for i in sph)}
     if len(same) > 1:  # one launch takes one T, one iteration count and one encoding
         warnings.warn(f"{len(sph)} full-sphere matballs differ in T, Newton iterations or encoding: each runs "
                       "over the whole wavefront, unrouted", stacklevel=3)
         sph = []
-    tab = [i for i, r in enumerate(routes) if r.kind in ("table", "sphere") and isinstance(r.mat, PrincipledParams)]
-    cos = [i for i, r in enumerate(routes) if r.kind == "table"]
+    tab = [i for i, (k, r) in enumerate(zip(kinds, routes))
+           if k in ("table", "sphere") and isinstance(r.mat, PrincipledParams)]
+    cos = [i for i, k in enumerate(kinds) if k == "table"]
     n_ids = MAT_BALL + len(matballs)
 
     def lut(values: dict, fill, dtype):
         return torch.tensor([values.get(m - MAT_BALL, fill) for m in range(n_ids)], dtype=dtype, device=device)
 
-    clamps = [r.clamp for r in routes]
     return _Router(
         trans=lut({i: mb.transmissive for i, mb in enumerate(matballs)}, False, torch.bool),
-        clamp=None if any(c is None or math.isinf(c) for c in clamps) else lut(dict(enumerate(clamps)), math.inf,
-                                                                                 torch.float32),
+        clamp=lut({i: r.clamp for i, r in enumerate(routes)}, math.inf, torch.float32),
         cos_on=lut({i: True for i in cos}, False, torch.bool),
         cos_balls=tuple(cos),
         sph_of=lut({b: k for k, b in enumerate(sph)}, -1, torch.int64),
@@ -313,9 +318,8 @@ def _router(matballs: tuple, device) -> _Router | None:
         tab_of=lut({b: k for k, b in enumerate(tab)}, -1, torch.int64),
         tab=PrincipledRows.of([routes[i].mat for i in tab], device) if tab else None,
         tab_albedo=torch.tensor([routes[i].albedo for i in tab], dtype=torch.float32, device=device).reshape(-1, 3),
-        cb_sample=tuple(i for i in range(len(matballs)) if i not in sph and i not in cos),
+        cb_draw=tuple(i for i in range(len(matballs)) if i not in sph and i not in cos),
         cb_eval=tuple(i for i in range(len(matballs)) if i not in tab),
-        cb_pdf=tuple(i for i in range(len(matballs)) if i not in sph and i not in cos),
     )
 
 
@@ -326,14 +330,12 @@ def _seeds(rands) -> tuple:
     return torch.cat([(d.seed if isinstance(d, RowSeed) else d).reshape(1) for d in rands]), row0
 
 
-def _table_values(r: _Router, mid, wi_l, wo_l, out):
+def _table_values(r: _Router, mat_id, wi_l, wo_l, out):
     """The table balls' f * cos from one principled evaluation, each row
     under its ball's material and albedo; `out` elsewhere."""
     if r.tab is None:
         return out
-    from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import eval_principled_rows
-
-    k = r.tab_of[mid]
+    k = r.tab_of[mat_id.long()]
     kc = torch.clamp(k, min=0)
     f = eval_principled_rows(r.tab.take(kc), wi_l, wo_l)[..., None] * r.tab_albedo[kc]
     return torch.where((k >= 0)[..., None], f, out)
@@ -345,24 +347,6 @@ def _cosine_pdf(r: _Router, mid, wo_l):
     return torch.where(r.trans[mid], base * 0.5, torch.where(wo_l[..., 2] > 0, base, 0.0))
 
 
-# ---------------------------------------------------------- the dispatch
-
-
-def _shade_eval(matballs: Matballs, mat_id, uv, wi_l, wo_l):
-    """f*cos for all materials, masked by mat_id."""
-    out = diffuse_eval(_albedo(mat_id, uv), wo_l)
-    r = matballs.router
-    if r is not None:
-        mid = mat_id.long()
-        out = _table_values(r, mid, wi_l, wo_l, out)
-        for i in r.cb_eval:
-            out = torch.where((mat_id == MAT_BALL + i)[..., None], matballs[i].eval(wi_l, wo_l), out)
-        return out
-    for i, mb in enumerate(matballs):
-        out = torch.where((mat_id == MAT_BALL + i)[..., None], mb.eval(wi_l, wo_l), out)
-    return out
-
-
 def _below_unless(keep, wi_l):
     """wi_l on the rows of `keep`, (0, 0, -1) on the others."""
     down = wi_l.new_zeros(3)
@@ -370,72 +354,68 @@ def _below_unless(keep, wi_l):
     return torch.where(keep[..., None], wi_l, down)
 
 
-def _shade_eval_pdf(matballs: Matballs, mat_id, uv, wi_l, wo_l, need=None):
-    """(f*cos, pdf) for all materials, each matball's from its fused
-    eval_pdf where it has one. Routed, the full-sphere samplers' pdfs are
-    queried only on the rows of `need` (every row without it). Unrouted, a
-    `pdf` callback sees wi = (0, 0, -1), below the surface, on the rows
-    outside `need` and its ball: a full-sphere sampler queries none of them."""
-    f = diffuse_eval(_albedo(mat_id, uv), wo_l)
-    pdf = diffuse_pdf(wo_l)
+def _routed(r: _Router, mat_id, need, counter: str):
+    """The routing of the rows of `need` (every row without it) that a
+    stacked full-sphere sampler takes."""
+    g = r.sph_of[mat_id.long()]
+    if need is not None:
+        g = torch.where(need, g, -1)
+    return route_rows(g, len(r.sph_balls), counter)
+
+
+# ---------------------------------------------------------- the dispatch
+
+
+def _shade_eval(matballs: Matballs, mat_id, uv, wi_l, wo_l):
+    """f*cos for all materials: the table balls' from one principled
+    evaluation, the others' from their `eval`, kept by material id."""
     r = matballs.router
-    if r is not None:
-        return _routed_eval_pdf(r, matballs, mat_id, wi_l, wo_l, need, f, pdf)
-    for i, mb in enumerate(matballs):
-        is_b = mat_id == MAT_BALL + i
-        if mb.eval_pdf is not None:
-            fb, pb = mb.eval_pdf(wi_l, wo_l)
-        else:
-            fb, pb = mb.eval(wi_l, wo_l), mb.pdf(wi_l if need is None else _below_unless(need & is_b, wi_l), wo_l)
-        f = torch.where(is_b[..., None], fb, f)
-        pdf = torch.where(is_b, pb, pdf)
-    return f, pdf
-
-
-def _routed_eval_pdf(r: _Router, matballs, mat_id, wi_l, wo_l, need, f, pdf):
-    mid = mat_id.long()
-    f = _table_values(r, mid, wi_l, wo_l, f)
-    if r.cos_balls:
-        pdf = torch.where(r.cos_on[mid], _cosine_pdf(r, mid, wo_l), pdf)
+    out = _table_values(r, mat_id, wi_l, wo_l, diffuse_eval(_albedo(mat_id, uv), wo_l))
     for i in r.cb_eval:
-        if i not in r.cb_pdf:
-            f = torch.where((mat_id == MAT_BALL + i)[..., None], matballs[i].eval(wi_l, wo_l), f)
-    for i in r.cb_pdf:
-        mb, is_b = matballs[i], mat_id == MAT_BALL + i
-        if mb.eval_pdf is not None:
-            fb, pb = mb.eval_pdf(wi_l, wo_l)
-            f = torch.where(is_b[..., None], fb, f)
-        else:
-            pb = mb.pdf(wi_l, wo_l)
-            if i in r.cb_eval:
-                f = torch.where(is_b[..., None], mb.eval(wi_l, wo_l), f)
-        pdf = torch.where(is_b, pb, pdf)
-    if r.sph is not None:
-        from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_pdf_routed
+        out = torch.where((mat_id == MAT_BALL + i)[..., None], matballs[i].eval(wi_l, wo_l), out)
+    return out
 
-        g = r.sph_of[mid]
-        if need is not None:
-            g = torch.where(need, g, -1)
-        rt = route_rows(g, len(r.sph_balls), "rows.routed_pdf")
+
+def _shade_eval_pdf(matballs: Matballs, mat_id, uv, wi_l, wo_l, need=None):
+    """(f*cos, pdf) for all materials. The full-sphere samplers' pdfs are
+    queried only on the rows of `need` (every row without it): a stacked
+    sampler's through the routing, a callback ball's `pdf` by seeing wi =
+    (0, 0, -1), below the surface, on the rows outside `need` and its ball,
+    which a full-sphere sampler does not query."""
+    r = matballs.router
+    f = _table_values(r, mat_id, wi_l, wo_l, diffuse_eval(_albedo(mat_id, uv), wo_l))
+    pdf = diffuse_pdf(wo_l)
+    if r.cos_balls:
+        mid = mat_id.long()
+        pdf = torch.where(r.cos_on[mid], _cosine_pdf(r, mid, wo_l), pdf)
+    for i, mb in enumerate(matballs):
+        draws, values = i in r.cb_draw, i in r.cb_eval
+        if not (draws or values):
+            continue
+        is_b = mat_id == MAT_BALL + i
+        if draws and mb.eval_pdf is not None:
+            fb, pb = mb.eval_pdf(wi_l, wo_l)
+        else:
+            fb = mb.eval(wi_l, wo_l) if values else None
+            pb = mb.pdf(wi_l if need is None else _below_unless(need & is_b, wi_l), wo_l) if draws else None
+        if fb is not None:
+            f = torch.where(is_b[..., None], fb, f)
+        if pb is not None:
+            pdf = torch.where(is_b, pb, pdf)
+    if r.sph is not None:
+        rt = _routed(r, mat_id, need, "rows.routed_pdf")
         pb = neural_pdf_routed(r.sph_nb, r.sph, rt.tile_ball, rt.gather(wi_l), rt.gather(wo_l))
         pdf = rt.scatter(pb, pdf)
     return f, pdf
 
 
 def _shade_sample(matballs: Matballs, rnd: BounceRandoms, mat_id, wi_l, need=None):
-    """(wo, pdf) of every row's material. Routed, the full-sphere samplers
+    """(wo, pdf) of every row's material. The stacked full-sphere samplers
     draw only the rows of `need` (every row without it)."""
     wo, pdf = cosine_sample(rnd.u_diffuse)
     r = matballs.router
-    if r is None:
-        for i, mb in enumerate(matballs):
-            wo_b, pdf_b = mb.sample(rnd.ball[i], wi_l)
-            is_b = mat_id == MAT_BALL + i
-            wo = torch.where(is_b[..., None], wo_b, wo)
-            pdf = torch.where(is_b, pdf_b, pdf)
-        return wo, pdf
-    mid = mat_id.long()
     if r.cos_balls:  # one two-sided cosine draw, each row from its ball's uniforms
+        mid = mat_id.long()
         u, side = rnd.u_diffuse, torch.zeros_like(rnd.u_rr)
         for i in r.cos_balls:
             is_b = mat_id == MAT_BALL + i
@@ -448,18 +428,13 @@ def _shade_sample(matballs: Matballs, rnd: BounceRandoms, mat_id, wi_l, need=Non
         on = r.cos_on[mid]
         wo = torch.where(on[..., None], wo_c, wo)
         pdf = torch.where(on, pdf_c, pdf)
-    for i in r.cb_sample:
+    for i in r.cb_draw:
         wo_b, pdf_b = matballs[i].sample(rnd.ball[i], wi_l)
         is_b = mat_id == MAT_BALL + i
         wo = torch.where(is_b[..., None], wo_b, wo)
         pdf = torch.where(is_b, pdf_b, pdf)
     if r.sph is not None:
-        from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_sample_routed
-
-        g = r.sph_of[mid]
-        if need is not None:
-            g = torch.where(need, g, -1)
-        rt = route_rows(g, len(r.sph_balls), "rows.routed_draw")
+        rt = _routed(r, mat_id, need, "rows.routed_draw")
         seeds, row0 = _seeds([rnd.ball[i] for i in r.sph_balls])
         wo_b, pdf_b = neural_sample_routed(r.sph_nb, r.sph, seeds, rt.slot_row + row0, rt.tile_ball,
                                            rt.gather(wi_l))
@@ -468,24 +443,12 @@ def _shade_sample(matballs: Matballs, rnd: BounceRandoms, mat_id, wi_l, need=Non
 
 
 def _transmissive_mask(matballs: Matballs, mat_id):
-    r = matballs.router
-    if r is not None:
-        return r.trans[mat_id.long()]
-    m = torch.zeros(mat_id.shape, dtype=torch.bool, device=mat_id.device)
-    for i, mb in enumerate(matballs):
-        if mb.transmissive:
-            m = m | (mat_id == MAT_BALL + i)
-    return m
+    return matballs.router.trans[mat_id.long()]
 
 
 def _ball_filter(matballs: Matballs, mat_id, w_rgb):
-    r = matballs.router
-    if r is not None and r.clamp is not None:  # every ball clamps the luminance of f / pdf
-        return luminance_clamp(w_rgb, r.clamp[mat_id.long()])
-    out = w_rgb
-    for i, mb in enumerate(matballs):
-        out = torch.where((mat_id == MAT_BALL + i)[..., None], mb.weight_filter(w_rgb), out)
-    return out
+    """Each ball row's weight under its ball's firefly clamp."""
+    return luminance_clamp(w_rgb, matballs.router.clamp[mat_id.long()])
 
 
 def _bounce_body(accel: Union[BVH8, BVH], env: EnvMap, lights: torch.Tensor, state, rnd: BounceRandoms, depth: int, *,
@@ -699,7 +662,7 @@ def measured_matball(brdf, firefly_clamp: float = 30.0) -> MatballFns:
         sample=lambda u, wi: sample_brdf(brdf, u, wi),
         eval=lambda wi, wo: eval_brdf(brdf, wi, wo),
         eval_pdf=lambda wi, wo: eval_pdf_brdf(brdf, wi, wo),
-        **_filtered(BallRoute("other", firefly_clamp)),
+        route=BallRoute("other", firefly_clamp),
     )
 
 
@@ -708,14 +671,13 @@ def neural_matball(nb) -> MatballFns:
     seed from the bounce's generator), measured eval. eval_pdf is the
     MEASURED fused (f, pdf), the MIS proxy (see the note in `_bounce_body`)."""
     from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import eval_pdf_brdf
-    from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_eval, neural_sample
 
     return MatballFns(
         draw=lambda gen, n: draw_seed(gen),
         sample=lambda rand, wi: neural_sample(nb, rand, wi),
         eval=lambda wi, wo: neural_eval(nb, wi, wo),
         eval_pdf=lambda wi, wo: eval_pdf_brdf(nb.brdf, wi, wo),
-        **_filtered(BallRoute("other", nb.firefly_clamp)),
+        route=BallRoute("other", nb.firefly_clamp),
     )
 
 
@@ -725,12 +687,6 @@ def luminance_clamp(w_rgb: torch.Tensor, clamp) -> torch.Tensor:
     (`brdf_measured_disk.py:97-100`)."""
     lum = 0.2126 * w_rgb[..., 0] + 0.7152 * w_rgb[..., 1] + 0.0722 * w_rgb[..., 2]
     return torch.where((lum < clamp)[..., None], w_rgb, 0.0)
-
-
-def _filtered(route: BallRoute) -> dict:
-    """A matball's `route` and the firefly filter of its clamp: the one
-    clamp the routed dispatch applies too (`_ball_filter`)."""
-    return {"weight_filter": lambda w: luminance_clamp(w, route.clamp), "route": route}
 
 
 def _table_eval(mat, albedo, device):
@@ -753,8 +709,6 @@ def principled_matball(mat, albedo=(1.0, 1.0, 1.0), firefly_clamp: float = 3.5, 
     eval times the albedo tint, sampled by a cosine lobe mirrored below the
     surface with probability 1/2 when the material transmits. Its draw is
     (u (N, 2) for the cosine lobe, u_side (N,) for the side)."""
-    from bsdf_diffusion_sampling_tpu_torch.bsdf.principled import PrincipledParams
-
     device = resolve_device(device)
     transmits = (not isinstance(mat, PrincipledParams)) or mat.spec_trans > 0
     p_up = 0.5  # upper-hemisphere probability of the two-sided mixture
@@ -778,7 +732,7 @@ def principled_matball(mat, albedo=(1.0, 1.0, 1.0), firefly_clamp: float = 3.5, 
         eval=_table_eval(mat, albedo, device),
         pdf=pdf,
         transmissive=transmits,
-        **_filtered(BallRoute("table", firefly_clamp, mat, tuple(albedo))),
+        route=BallRoute("table", firefly_clamp, mat, tuple(albedo)),
     )
 
 
@@ -787,13 +741,11 @@ def neural_matball_sphere(nb, mat, albedo=(1.0, 1.0, 1.0)) -> MatballFns:
     draws with a kernel seed from the bounce's generator) and the table
     material's analytic eval times the albedo. It has no fused eval_pdf, so
     MIS queries the neural pdf at the NEE and at the sampled direction."""
-    from bsdf_diffusion_sampling_tpu_torch.render.neural import neural_pdf, neural_sample
-
     return MatballFns(
         draw=lambda gen, n: draw_seed(gen),
         sample=lambda rand, wi: neural_sample(nb, rand, wi),
         eval=_table_eval(mat, albedo, nb.v_params[0]["w"].device),
         pdf=lambda wi, wo: neural_pdf(nb, wi, wo),
         transmissive=True,
-        **_filtered(BallRoute("sphere", nb.firefly_clamp, mat, tuple(albedo), nb)),
+        route=BallRoute("sphere", nb.firefly_clamp, mat, tuple(albedo), nb),
     )

@@ -5,10 +5,10 @@ point_light=ARRAY_LIGHT)`), one full-sphere sampler a ball from seeded
 random weights, on the CPU (the routed K4 and K2s run their plain
 versions there):
 
-- bounces and films equal today's dispatch, every matball run over the
-  whole wavefront and kept by `torch.where` (`ROUTE_MIN_BALLS` raised past
-  the ball count), to 1e-6, without a mesh, on a one-rank mesh and on the
-  second half of a wavefront (its rows keyed by their global index); a
+- bounces and films equal the callback dispatch, every matball run over
+  the whole wavefront and kept by `torch.where` (`ROUTE_MIN_BALLS` raised
+  past the ball count: the routing groups none), to 1e-6, without a mesh,
+  on a one-rank mesh and on the second half of a wavefront (its rows keyed by their global index); a
   dead row's next ray is not compared, as it comes from the draw the
   routing left out;
 - the draw and the pdf of every routed row equal today's, and a row the
@@ -143,13 +143,15 @@ def test_routed_rows_draw_and_pdf_as_masked(world, monkeypatch):
     on_ball = mat_id >= ti.MAT_BALL
     assert len(set(mat_id[on_ball].tolist())) >= 6
     routed = ti.as_matballs(balls, "cpu")
-    assert routed.router is not None
+    assert routed.router.sph_balls == tuple(range(len(balls)))  # 12 stacked samplers
     got_s = ti._shade_sample(routed, rnd, mat_id, wi, need=need)
     got_p = ti._shade_eval_pdf(routed, mat_id, uv, wi, wo, need=need)
     cos_wo, cos_pdf = ti.cosine_sample(rnd.u_diffuse)
     _masked(monkeypatch)
     masked = ti.as_matballs(balls, "cpu")
-    assert masked.router is None
+    r = masked.router
+    assert r.sph is None and r.tab is None and not r.cos_balls
+    assert r.cb_draw == r.cb_eval == tuple(range(len(balls)))
     want_s = ti._shade_sample(masked, rnd, mat_id, wi)
     want_p = ti._shade_eval_pdf(masked, mat_id, uv, wi, wo)
     kept, out = need | ~on_ball, on_ball & ~need
@@ -361,12 +363,13 @@ def test_mixed_samplers_warn_and_run_unrouted(world):
     balls[1] = ti.neural_matball_sphere(nb, balls[1].route.mat, balls[1].route.albedo)
     with pytest.warns(UserWarning, match="unrouted"):
         r = ti.as_matballs(tuple(balls), "cpu").router
-    assert r.sph is None and set(r.cb_sample) == set(range(len(balls)))
+    assert r.sph is None and set(r.cb_draw) == set(range(len(balls)))
 
 
 def test_each_filter_is_its_route_clamp(world, tmp_path):
-    """Every matball's firefly filter is the luminance clamp at its route's
-    clamp, the one the routed dispatch applies to all balls at once."""
+    """Each ball's rows are filtered by the luminance clamp at its route's
+    clamp: in a scene of three kinds of balls, and in a scene of each ball
+    alone."""
     from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import load_measured
 
     procedural.write_scene(str(tmp_path), n_lat=8, n_lon=8, plane_g=2, env_res=(8, 16), width=4, height=4)
@@ -374,11 +377,12 @@ def test_each_filter_is_its_route_clamp(world, tmp_path):
     balls = (world["balls"][0], ti.principled_matball(BSDF_MATERIALS[0], device="cpu", firefly_clamp=2.0),
              ti.measured_matball(brdf, firefly_clamp=7.0))
     w = torch.rand(4000, 3, generator=torch.Generator().manual_seed(4)) * 12.0
-    for mb in balls:
-        got = mb.weight_filter(w)
-        assert 0 < int((got.amax(-1) == 0).sum()) < w.shape[0]
-        assert torch.equal(got, ti.luminance_clamp(w, mb.route.clamp))
-    mbs = ti.as_matballs(balls, "cpu")
     mat_id = torch.randint(ti.MAT_BALL, ti.MAT_BALL + len(balls), (w.shape[0],), generator=torch.Generator())
-    want = torch.stack([mb.weight_filter(w) for mb in balls])[mat_id - ti.MAT_BALL, torch.arange(w.shape[0])]
-    assert torch.equal(ti._ball_filter(mbs, mat_id, w), want)
+    got = ti._ball_filter(ti.as_matballs(balls, "cpu"), mat_id, w)
+    for i, mb in enumerate(balls):
+        on = mat_id == ti.MAT_BALL + i
+        want = ti.luminance_clamp(w[on], mb.route.clamp)
+        assert 0 < int((want.amax(-1) == 0).sum()) < int(on.sum())
+        assert torch.equal(got[on], want)
+        alone = ti._ball_filter(ti.as_matballs((mb,), "cpu"), torch.full_like(mat_id, ti.MAT_BALL), w)
+        assert torch.equal(alone, ti.luminance_clamp(w, mb.route.clamp))

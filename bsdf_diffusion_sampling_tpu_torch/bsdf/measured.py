@@ -26,6 +26,11 @@ Evaluation chain (wi, wo upward):
 
 The JAX package's TPU layouts of the same tables (`rgb_rows`, one-hot
 lane selects) are not carried over: lookups here are plain gathers.
+
+`eval_brdf`, `pdf_brdf`, `eval_pdf_brdf`, `eval_lum` and `sample_brdf`
+launch one kernel of `ops/warp2d.py` for CUDA tensors and run their plain
+versions (`*_plain`) for CPU ones; each adds the rows it computes to the
+counter `rows.warp_brdf` while spans record.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ from bsdf_diffusion_sampling_tpu_torch.bsdf.marginal2d import (
     warp_sample,
 )
 from bsdf_diffusion_sampling_tpu_torch.bsdf.tensorfile import read_tensor_file
+from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.core.device import resolve_device
+from bsdf_diffusion_sampling_tpu_torch.ops import warp2d
 
 _TWO_OVER_PI = 2.0 / math.pi
 
@@ -205,14 +212,32 @@ def _pdf(brdf, active, wo, wm, theta_i, phi_i, theta_m, u_x, s, vndf_pdf):
     return torch.where(active, vndf_pdf * lum_pdf / _solid_angle_jacobian(u_x, theta_m, wo, wm), 0.0)
 
 
+def _count(a: torch.Tensor, b: torch.Tensor) -> None:
+    trace.count("rows.warp_brdf", max(a.numel() // a.shape[-1], b.numel() // b.shape[-1]))
+
+
 def eval_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(N, 3) BSDF value * cos(theta_o); zero outside the upper hemisphere."""
+    _count(wi, wo)
+    if wi.device.type == "cuda":
+        return warp2d.eval_brdf(brdf, wi, wo)
+    return eval_brdf_plain(brdf, wi, wo)
+
+
+def eval_brdf_plain(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     active, wm, theta_i, phi_i, theta_m, u_x, u_y, s, _ = _query(brdf, wi, wo)
     return _f(brdf, active, theta_i, phi_i, u_x, u_y, s)
 
 
 def pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """Solid-angle pdf of wo under sample_brdf."""
+    _count(wi, wo)
+    if wi.device.type == "cuda":
+        return warp2d.pdf_brdf(brdf, wi, wo)
+    return pdf_brdf_plain(brdf, wi, wo)
+
+
+def pdf_brdf_plain(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     active, wm, theta_i, phi_i, theta_m, u_x, _, s, vndf_pdf = _query(brdf, wi, wo)
     return _pdf(brdf, active, wo, wm, theta_i, phi_i, theta_m, u_x, s, vndf_pdf)
 
@@ -220,6 +245,13 @@ def pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Te
 def eval_pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(eval, pdf) in one pass, sharing the vndf invert; equals
     (eval_brdf(..), pdf_brdf(..)) exactly."""
+    _count(wi, wo)
+    if wi.device.type == "cuda":
+        return warp2d.eval_pdf_brdf(brdf, wi, wo)
+    return eval_pdf_brdf_plain(brdf, wi, wo)
+
+
+def eval_pdf_brdf_plain(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     active, wm, theta_i, phi_i, theta_m, u_x, u_y, s, vndf_pdf = _query(brdf, wi, wo)
     return (_f(brdf, active, theta_i, phi_i, u_x, u_y, s),
             _pdf(brdf, active, wo, wm, theta_i, phi_i, theta_m, u_x, s, vndf_pdf))
@@ -228,6 +260,13 @@ def eval_pdf_brdf(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> Tup
 def sample_brdf(brdf: MeasuredBRDF, u: torch.Tensor, wi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Importance-sample wo given wi and uniforms u (N, 2). Returns (wo, pdf);
     invalid (downward) results carry pdf 0."""
+    _count(u, wi)
+    if wi.device.type == "cuda":
+        return warp2d.sample_brdf(brdf, u, wi)
+    return sample_brdf_plain(brdf, u, wi)
+
+
+def sample_brdf_plain(brdf: MeasuredBRDF, u: torch.Tensor, wi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     theta_i, phi_i = _spherical(wi)
     s, lum_pdf = warp_sample(brdf.luminance, u, theta_i, phi_i)
     u_wm, vndf_pdf = warp_sample(brdf.vndf, s, theta_i, phi_i)
@@ -244,4 +283,11 @@ def sample_brdf(brdf: MeasuredBRDF, u: torch.Tensor, wi: torch.Tensor) -> Tuple[
 def eval_lum(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """Luminance of eval_brdf, the scalar target density of the MCMC
     dataset generator."""
-    return rgb_to_luminance(eval_brdf(brdf, wi, wo))
+    _count(wi, wo)
+    if wi.device.type == "cuda":
+        return warp2d.eval_lum(brdf, wi, wo)
+    return eval_lum_plain(brdf, wi, wo)
+
+
+def eval_lum_plain(brdf: MeasuredBRDF, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return rgb_to_luminance(eval_brdf_plain(brdf, wi, wo))

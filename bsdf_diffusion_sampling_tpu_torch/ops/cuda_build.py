@@ -50,6 +50,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-O2", "-shared", "-fPIC")
+# flags of one source beyond NVCC_FLAGS: warp2d.cu rounds every product and
+# sum on its own, as the plain PyTorch version it mirrors does
+SOURCE_FLAGS = {"warp2d.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -66,7 +69,7 @@ def nvcc_path() -> str:
 
 
 def _flags(source: str) -> Tuple[str, ...]:
-    return NVCC_FLAGS if source.endswith(".cu") else HOST_FLAGS
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ()) if source.endswith(".cu") else HOST_FLAGS
 
 
 def library_path(source: str) -> Path:

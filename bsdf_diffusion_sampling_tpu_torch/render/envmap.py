@@ -6,6 +6,11 @@ intensity scale. Directions map to texture coordinates in env-local space
 with Y up: u = (1 + atan2(x, -z)/pi)/2, v = acos(clamp(y))/pi (Mitsuba's
 convention). Importance sampling uses the 2D warp (one parameter slice)
 over the luminance * sin(theta) grid.
+
+`sample_env`, `eval_env` and `pdf_env` launch one kernel of
+`ops/warp2d.py` for CUDA tensors and run their plain versions (`*_plain`)
+for CPU ones; each adds the rows it computes to the counter
+`rows.warp_env` while spans record.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import numpy as np
 import torch
 
 from bsdf_diffusion_sampling_tpu_torch.bsdf.marginal2d import Warp2D, build_warp2d, warp_eval, warp_sample
+from bsdf_diffusion_sampling_tpu_torch.core import trace
 from bsdf_diffusion_sampling_tpu_torch.native.exr import read_exr
+from bsdf_diffusion_sampling_tpu_torch.ops import warp2d
 
 
 class EnvMap(NamedTuple):
@@ -71,6 +78,13 @@ def _uv_to_dir(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def eval_env(env: EnvMap, d_world: torch.Tensor) -> torch.Tensor:
     """(N, 3) radiance arriving from direction d (pointing away from the
     shading point, world space); bilinear over texels, rows blended last."""
+    trace.count("rows.warp_env", d_world.numel() // 3)
+    if d_world.device.type == "cuda":
+        return warp2d.eval_env(env, d_world)
+    return eval_env_plain(env, d_world)
+
+
+def eval_env_plain(env: EnvMap, d_world: torch.Tensor) -> torch.Tensor:
     u, v = _dir_to_uv(d_world @ env.to_local.T)
     h, w, _ = env.data.shape
     x = torch.clamp(u * w - 0.5, 0.0, w - 1 - 1e-3)
@@ -90,13 +104,27 @@ def _uv_pdf_to_solid_angle(pdf_uv: torch.Tensor, v: torch.Tensor) -> torch.Tenso
 
 def sample_env(env: EnvMap, u2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """u2 (N, 2) uniforms -> (d_world, radiance, pdf_solid_angle)."""
+    trace.count("rows.warp_env", u2.numel() // 2)
+    if u2.device.type == "cuda":
+        return warp2d.sample_env(env, u2)
+    return sample_env_plain(env, u2)
+
+
+def sample_env_plain(env: EnvMap, u2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     pos, pdf_uv = warp_sample(env.warp, u2, torch.zeros(u2.shape[:-1], device=u2.device))
     d_world = _uv_to_dir(pos[..., 0], pos[..., 1]) @ env.to_world.T
-    return d_world, eval_env(env, d_world), _uv_pdf_to_solid_angle(pdf_uv, pos[..., 1])
+    return d_world, eval_env_plain(env, d_world), _uv_pdf_to_solid_angle(pdf_uv, pos[..., 1])
 
 
 def pdf_env(env: EnvMap, d_world: torch.Tensor) -> torch.Tensor:
     """Solid-angle pdf that sample_env draws direction d."""
+    trace.count("rows.warp_env", d_world.numel() // 3)
+    if d_world.device.type == "cuda":
+        return warp2d.pdf_env(env, d_world)
+    return pdf_env_plain(env, d_world)
+
+
+def pdf_env_plain(env: EnvMap, d_world: torch.Tensor) -> torch.Tensor:
     u, v = _dir_to_uv(d_world @ env.to_local.T)
     pdf_uv = warp_eval(env.warp, torch.stack([u, v], dim=-1), torch.zeros_like(u))
     return _uv_pdf_to_solid_angle(pdf_uv, v)

@@ -42,6 +42,15 @@ Phases, each of which raises on failure:
   6. hold K5 against its plain walker on primary, secondary and shadow
      rays (closest and any hit) at 2^20 and 2^20 - 37 rays; print its
      packed layout's bytes;
+  6b. the envmap's and the measured BRDF's kernels (`csrc/warp2d.cu`:
+     sample_env, eval_env, pdf_env, eval_brdf, pdf_brdf, eval_pdf_brdf,
+     eval_lum, sample_brdf) against their plain versions at 2^20 rows with
+     edge rows, over 1 (envmap), 2 (isotropic) and 4 (anisotropic) warp
+     slices: 1e-5 on every row that is neither a binary-search tie nor
+     ill-conditioned (a direction near a pole), both shares printed and
+     under 1%, the bit-equal share printed; each timed at 2^20 and 2^22 rows beside its plain version and
+     its byte bound; the MCMC sweep on the measured target with eval_lum's
+     kernel inside its CUDA graph equal to the eager sweep;
   7. the sampler paths: bounces of neural_sample -> neural_pdf at 2^20
      queries, disk and spherical (the exact pdf by K2s, then K3's
      reverse-Euler pdf), with the kernels' launch counts read around each;
@@ -50,8 +59,10 @@ Phases, each of which raises on failure:
      the measured scene at 64 spp; gt and neural-sphere (the exact pdf: the
      routed K2s twice a bounce) on the table scene at 16 spp; then one
      neural-sphere render with the reverse-Euler pdf
-     (K3) through `render()`; the launch counts read around each render,
-     and checks of the images;
+     (K3) through `render()`; the launch counts read around each render
+     (the warp kernels' too: the envmap's three a bounce in every scene, a
+     measured ball's two fused queries and, in gt, its draw), and checks of
+     the images;
   9. time each kernel (K2 exact and reverse), its plain version and its
      bound; one bounce's stages,
      neural-disk, neural-sphere, and neural-sphere with K3's reverse-Euler
@@ -162,11 +173,13 @@ Phases, each of which raises on failure:
      depth 12): relMSE to phase 8's table gt below phase 10's, mean
      radiance within 10% of gt;
   16. print the `training` line, the `differentiable` line, the
-     `multidevice` line, the `rest` line, the `quality` line, the `arrays`
-     line, the `sphere_quality` line, the card's line, the `kernels` line
-     (each kernel's row-offset status and its launches in the anisotropic,
-     trained-quality, array and full-sphere runs beside its numbers; the
-     routed kernels' rows from phase 14c) and the `ok` line.
+     `multidevice` line, the `rest` line, the `warps` line, the `quality`
+     line, the `arrays` line, the `sphere_quality` line, the card's line,
+     the `kernels` line (each kernel's row-offset status and its launches in
+     the anisotropic, trained-quality, array and full-sphere runs beside its
+     numbers; the routed kernels' rows from phase 14c; the warp kernels'
+     rows: launches from phase 8's renders, eval_lum's from phase 10's
+     training, gaps and times from phase 6b) and the `ok` line.
 
 Imports nothing of JAX: the port stands alone on the card.
 """
@@ -194,6 +207,7 @@ from bsdf_diffusion_sampling_tpu_torch.core.config import ModelConfig, SamplerCo
 from bsdf_diffusion_sampling_tpu_torch.core.prng import root_generator
 from bsdf_diffusion_sampling_tpu_torch.bsdf.analytic import ggx_shading_disk
 from bsdf_diffusion_sampling_tpu_torch.bsdf.marginal2d import warp_eval, warp_invert, warp_sample
+from bsdf_diffusion_sampling_tpu_torch.bsdf import measured as me
 from bsdf_diffusion_sampling_tpu_torch.bsdf.materials import BSDF_MATERIALS
 from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import (
     eval_brdf,
@@ -203,9 +217,9 @@ from bsdf_diffusion_sampling_tpu_torch.bsdf.measured import (
     sample_brdf,
 )
 from bsdf_diffusion_sampling_tpu_torch.data.datasets import generate_brdf_dataset
-from bsdf_diffusion_sampling_tpu_torch.data.mcmc import ensemble_mcmc, make_domain_log_prob
+from bsdf_diffusion_sampling_tpu_torch.data.mcmc import CHUNK as MCMC_CHUNK, ensemble_mcmc, make_domain_log_prob
 from bsdf_diffusion_sampling_tpu_torch.data.tabulated import build_tabulated, domain_grid, online_sampling, sample_tabulated
-from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher
+from bsdf_diffusion_sampling_tpu_torch.geometry.coords import cart_to_spher, disk_to_cart
 from bsdf_diffusion_sampling_tpu_torch.interop.jax_params import params_from_jax
 from bsdf_diffusion_sampling_tpu_torch.models.base_density import disk_heads_from_enc, get_base
 from bsdf_diffusion_sampling_tpu_torch.models.velocity import encode_condition
@@ -214,10 +228,12 @@ from bsdf_diffusion_sampling_tpu_torch.native.samplewilib import samplewi_native
 from bsdf_diffusion_sampling_tpu_torch.ode.flow import ode_pdf_exact, transport, transport_with_det
 from bsdf_diffusion_sampling_tpu_torch.ops import cuda_build
 from bsdf_diffusion_sampling_tpu_torch.ops import fused_ode as fo
+from bsdf_diffusion_sampling_tpu_torch.ops import warp2d
 from bsdf_diffusion_sampling_tpu_torch.parallel import init_distributed, make_mesh
 from bsdf_diffusion_sampling_tpu_torch.cli import import_reference as import_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import render as render_cli
 from bsdf_diffusion_sampling_tpu_torch.cli import train as train_cli
+from bsdf_diffusion_sampling_tpu_torch.render import envmap as em
 from bsdf_diffusion_sampling_tpu_torch.render import traverse8 as t8
 from bsdf_diffusion_sampling_tpu_torch.render.bvh import intersect as binary_intersect
 from bsdf_diffusion_sampling_tpu_torch.render.camera import generate_rays
@@ -242,6 +258,7 @@ from bsdf_diffusion_sampling_tpu_torch.render.procedural import (
     ARRAY_MATERIALS,
     ARRAY_TABLE,
     TABLE,
+    sky_envmap,
     synthetic_measured_tensors,
     write_array_scene,
     write_scene,
@@ -258,6 +275,7 @@ from bsdf_diffusion_sampling_tpu_torch.utils.validation import (
     relative_mse,
     sampler_vs_pdf_kl,
 )
+import warp_checks as wc
 
 N_MAIN = 1 << 20  # the wavefront of the main path, the checks and the timings
 N_RAGGED = N_MAIN - 37  # a size whose last block of 128 threads is partly masked
@@ -1023,25 +1041,145 @@ def time_traverse(accel, cam, device, name: str) -> dict:
     return tot
 
 
+# ------------------------------------------------- the 2D warp's kernels ----
+# Phase 6b: the envmap's and the measured BRDF's entry points, one launch of
+# `csrc/warp2d.cu` each on the card, against their plain versions
+# (`*_plain`), on the tables the render cells use: the 128 x 256 sky envmap
+# (1 warp slice), the isotropic synthetic RGL file (vndf 64 x 64, luminance
+# 32 x 32, 8 theta_i: 2 slices a row) and its anisotropic twin (4 phi_i: 4
+# slices a row). The cases, the gaps and what rows they leave out (ties and
+# ill-conditioned rows) are `warp_checks.py`'s.
+# floats a row reads and writes, each entry point
+WARP_IO = {"sample_env": (2, 7), "eval_env": (3, 3), "pdf_env": (3, 1), "eval_brdf": (6, 3), "pdf_brdf": (6, 1),
+           "eval_pdf_brdf": (6, 4), "eval_lum": (6, 1), "sample_brdf": (5, 4)}
+WARP_TIMED = ("sample_env", "eval_env", "pdf_env", "eval_pdf_brdf", "sample_brdf", "eval_lum")
+
+
+def warp_tables(device) -> dict:
+    """{"env", "iso", "aniso"}: the envmap and the two measured BRDFs."""
+    return {"env": em.envmap_from_image(sky_envmap(128, 256)).to(device),
+            "iso": measured_from_tensors(synthetic_measured_tensors(), device=device),
+            "aniso": measured_from_tensors(synthetic_measured_tensors(n_phi=ANISO_PHI), device=device)}
+
+
+def warp_table_bytes(tables) -> int:
+    return sum(t.numel() * t.element_size() for t in tables if torch.is_tensor(t))
+
+
+def warp_mcmc(brdf, device) -> dict:
+    """The MCMC sweep on the measured BRDF's disk target (`cli/train.py`'s
+    eval_lum / cos theta_o), 2 bands x 50 walkers x 3 chunks of sweeps:
+    replayed as a CUDA graph, eval_lum's kernel captured in it, the chain
+    equals the eager sweeps' to the bit."""
+    def pdf_disk(wi, wo):
+        wo_c = disk_to_cart(wo)
+        return me.eval_lum(brdf, disk_to_cart(wi), wo_c) / torch.clamp(wo_c[:, 2], min=1e-3)
+
+    bounds = (torch.tensor([0.1, 0.5], device=device), torch.tensor([0.5, 0.9], device=device))
+    g = root_generator(SEED + 62, device)
+    ang = torch.rand((2, 50, 2), generator=g, device=device) * 2 * math.pi
+    r_i = (0.3 + 0.4 * torch.arange(2, device=device))[:, None] + 0.05 * torch.rand((2, 50), generator=g,
+                                                                                        device=device)
+    r_o = 0.5 * torch.rand((2, 50), generator=g, device=device)
+    x0 = torch.stack([r_i * torch.cos(ang[..., 0]), r_i * torch.sin(ang[..., 0]), r_o * torch.cos(ang[..., 1]),
+                      r_o * torch.sin(ang[..., 1])], -1)
+    chains = {}
+    for graph in (True, False):
+        chains[graph] = ensemble_mcmc(root_generator(SEED + 63, device), make_domain_log_prob(pdf_disk, "disk"), x0,
+                                      3 * MCMC_CHUNK, log_prob_args=bounds, graph=graph)
+    out = {"sweeps": 3 * MCMC_CHUNK, "acceptance": float(chains[True][1]),
+           "graph_equals_eager": bool(torch.equal(chains[True][0], chains[False][0])),
+           "finite": bool(torch.isfinite(chains[True][0]).all())}
+    log(f"    MCMC on the measured target, eval_lum's kernel in the graph: {out}")
+    require(out["graph_equals_eager"] and out["finite"] and 0.1 < out["acceptance"] < 0.9,
+            f"MCMC with eval_lum's kernel in its CUDA graph: {out}")
+    return out
+
+
+def warp_phase(device, name: str) -> dict:
+    """Phase 6b: build `csrc/warp2d.cu`, hold each kernel against its plain
+    version at N_MAIN rows over 1, 2 and 4 slices, and time the six entry
+    points the renders call (the BRDF's on the isotropic file and, for the
+    eval_pdf and the draw, on the anisotropic one) at 2^20 and 2^22 rows
+    beside their plain versions and their byte bound: the rows read once
+    and written once, the tables once."""
+    lib = cuda_build.build(["warp2d.cu"])["warp2d.cu"]
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"    ptxas warp2d.cu: {line.strip()}")
+    out = {"resources": warp2d.kernel_resources(), "gaps": {}, "times": {}}
+    for k, r in out["resources"].items():
+        log(f"    resources {k}: {r}")
+    tabs = warp_tables(device)
+    u, wi, wo, d = wc.warp_inputs(N_MAIN, SEED + 60, device)
+    warp2d.reset_launches()
+    for kind in ("env", "iso", "aniso"):
+        env, brdf = (tabs["env"], None) if kind == "env" else (None, tabs[kind])
+        gaps = wc.warp_gaps(env, brdf, u, wi, wo, d)
+        out["gaps"][kind] = gaps
+        log(f"    warp kernels vs plain, {kind}, n = {N_MAIN}: {gaps}")
+        bad = {k: g for k, g in gaps.items() if g["over_tol"] or g["tie_share"] > 1e-2 or g["ill_share"] > 1e-2}
+        require(not bad, f"warp kernels ({kind}) off their plain versions beyond {wc.WARP_TOL}, or too many rows "
+                f"left out: {bad}")
+    require(all(v == 2 for k, v in warp2d.launches.items() if not k.endswith("_env"))
+            and all(v == 1 for k, v in warp2d.launches.items() if k.endswith("_env")),
+            f"warp kernels: launches {warp2d.launches}, expected one a call")
+    out["mcmc"] = warp_mcmc(tabs["iso"], device)
+    _, bytes_peak = next(v for k, v in PEAKS.items() if k in name)
+    env_bytes = warp_table_bytes((tabs["env"].data, *tabs["env"].warp, tabs["env"].to_world, tabs["env"].to_local))
+    for n in (N_MAIN, 4 * N_MAIN):
+        u, wi, wo, d = wc.warp_inputs(n, SEED + 61, device)
+        for entry in WARP_TIMED:
+            for kind in (("env",) if entry.endswith("_env") else ("iso", "aniso")):
+                if kind == "aniso" and entry == "eval_lum":
+                    continue
+                t = tabs[kind]
+                if entry.endswith("_env"):
+                    args = (t, u) if entry == "sample_env" else (t, d)
+                    tb = env_bytes
+                else:
+                    args = (t, u, wi) if entry == "sample_brdf" else (t, wi, wo)
+                    tb = warp_table_bytes((t.theta_i_grid, t.phi_i_grid, t.sigma, t.ndf, *t.vndf, *t.luminance,
+                                           t.rgb))
+                mod = em if entry.endswith("_env") else me
+                ms = cuda_ms(lambda: getattr(mod, entry)(*args))
+                plain_ms = cuda_ms(lambda: getattr(mod, entry + "_plain")(*args), runs=3, warmup=1)
+                nbytes = n * 4 * sum(WARP_IO[entry]) + tb
+                bound = nbytes / bytes_peak * 1e3
+                r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "roofline_pct": 100.0 * bound / ms,
+                     "bytes": nbytes, "n": n}
+                out["times"][f"{entry} {kind} n={n}"] = r
+                log(f"time {entry} ({kind}) at n = {n}: {r}")
+    return out
+
+
 # The renders of phase 8: (scene, mode, spp). `table` is the scene_bsdf-style
 # twin of the measured scene.
 RENDERS = (("measured", "gt", RENDER_SPP), ("measured", "neural-disk", RENDER_SPP),
            ("measured", "neural-spherical", RENDER_SPP), ("table", "gt", TABLE_SPP),
            ("table", "neural-sphere", TABLE_SPP))
 K3_RENDER = ("table", "neural-sphere K3", TABLE_SPP)  # the reverse-Euler pdf, through render()
-# launches a bounce each mode must show (K5 at least 2, the others exactly)
-EXPECTED = {"gt": {}, "neural-disk": {"fused_sample_pdf_disk": 1},
-            "neural-spherical": {"fused_sample_pdf_spherical": 1},
-            "neural-sphere": {"fused_sample_pdf_spherical": 1, "fused_pdf_spherical_routed": 2},
-            "neural-sphere K3": {"fused_sample_pdf_spherical": 1, "fused_transport": 2}}
+# the warp kernels a bounce: the envmap's three calls in every scene, and a
+# measured ball's two fused queries (the NEE's and the drawn direction's),
+# and its draw where it samples itself (gt)
+ENV_WANT = {"sample_env": 1, "eval_env": 1, "pdf_env": 1}
+MEASURED_WANT = {**ENV_WANT, "eval_pdf_brdf": 2}
+# launches a bounce each mode must show (K5 at least 2, the others exactly);
+# "gt" is the measured scene's, "table gt" the table twin's
+EXPECTED = {"gt": {**MEASURED_WANT, "sample_brdf": 1}, "table gt": ENV_WANT,
+            "neural-disk": {"fused_sample_pdf_disk": 1, **MEASURED_WANT},
+            "neural-spherical": {"fused_sample_pdf_spherical": 1, **MEASURED_WANT},
+            "neural-sphere": {"fused_sample_pdf_spherical": 1, "fused_pdf_spherical_routed": 2, **ENV_WANT},
+            "neural-sphere K3": {"fused_sample_pdf_spherical": 1, "fused_transport": 2, **ENV_WANT}}
 
 
 def counted(fn):
     """Run fn with every launch count set to 0 just before; the counts just after."""
     fo.reset_launches()
     t8.reset_launches()
+    warp2d.reset_launches()
     out = fn()
-    return out, {**fo.launches, **t8.launches}
+    return out, {**fo.launches, **t8.launches, **warp2d.launches}
 
 
 def check_render(label: str, img, dt: float, spp: int, counts: dict, depth: int = RENDER_DEPTH,
@@ -1061,7 +1199,7 @@ def check_render(label: str, img, dt: float, spp: int, counts: dict, depth: int 
     require("traverse8" not in want or counts["traverse8"] == want["traverse8"] * bounces,
             f"render {label}: K5 launched {counts['traverse8']} times in {bounces} bounces, expected "
             f"{want.get('traverse8')} a bounce")
-    for k in fo.launches:
+    for k in (*fo.launches, *warp2d.launches):
         require(counts[k] == want.get(k, 0) * bounces,
                 f"render {label}: {k} launched {counts[k]} times in {bounces} bounces, "
                 f"expected {want.get(k, 0)} a bounce")
@@ -1084,7 +1222,8 @@ def render_main_path(d: str, scenes: dict, weights: dict, sph_tree: dict, device
     out = {}
     for scene, mode, spp in RENDERS:
         (img, dt), counts = counted(lambda: cli(scene, mode, spp, RENDER_DEPTH))
-        out[f"{scene} {mode}"] = (img, check_render(f"{scene} {mode}", img, dt, spp, counts))
+        label = f"{scene} {mode}"
+        out[label] = (img, check_render(label, img, dt, spp, counts, mode=label if label in EXPECTED else mode))
 
     scene_t = load_scene(scenes["table"], device=device, width=RENDER_RES, height=RENDER_RES)
     nb = make_neural_bsdf("sphere_full", SPH_CFG, sph_tree["rectified"], sph_tree["base"],
@@ -1294,6 +1433,8 @@ def check_run(run: dict, domain: str, n_rectify: int, resumed: bool, gate_pairs:
     rec = run["rec"]
     k3 = run["counts"]["fused_transport"]
     out = {"losses_logged": {k: len(v) for k, v in losses.items()}, "k3_launches": k3, "k3_per_pairgen": rec.calls,
+           # the measured target's eval_lum in the MCMC sweep, counted at its capture into the CUDA graph
+           "warp_launches": {k: run["counts"][k] for k in warp2d.launches},
            "stages": {k: {"iters": v["iters"], "ms_median": v["ms_median"],
                           "peak_gib": v["peak_bytes"] / 2**30 if v["peak_bytes"] is not None else None}
                       for k, v in run["stats"].items() if k != "mcmc"},
@@ -2580,9 +2721,11 @@ def quality_phase(d: str, scenes: dict, images: dict, device) -> dict:
 # ball is printed at depths 0 and 1. At 8 spp, cut from 16 to make room for
 # phase 15.
 ARRAY_SPP = 8
-ARRAY_WANT = {"measured gt": {"traverse8": 2}, "measured neural-disk": {"traverse8": 2, "fused_sample_pdf_disk": 12},
-              "table gt": {"traverse8": 3},
-              "table neural-sphere K3": {"traverse8": 3, "fused_sample_pdf_spherical": 12, "fused_transport": 24}}
+ARRAY_WANT = {"measured gt": {"traverse8": 2, **ENV_WANT, "eval_pdf_brdf": 24, "sample_brdf": 12},
+              "measured neural-disk": {"traverse8": 2, "fused_sample_pdf_disk": 12, **ENV_WANT, "eval_pdf_brdf": 24},
+              "table gt": {"traverse8": 3, **ENV_WANT},
+              "table neural-sphere K3": {"traverse8": 3, "fused_sample_pdf_spherical": 12, "fused_transport": 24,
+                                         **ENV_WANT}}
 
 
 def write_disk_references(root: str, materials, seed: int) -> None:
@@ -2692,7 +2835,8 @@ def array_phase(d: str, weights: dict, device) -> dict:
 # routed rows (the padding slots do no counted work); then the array
 # rendered with the exact pdf through cli/render.py, each kernel's launches
 # counted from 0 just before.
-ROUTED_WANT = {"traverse8": 3, "fused_sample_pdf_spherical_routed": 1}  # a bounce; 1 or 2 routed queries
+# a bounce; 1 or 2 routed queries
+ROUTED_WANT = {"traverse8": 3, "fused_sample_pdf_spherical_routed": 1, **ENV_WANT}
 
 
 def routed_phase(d: str, weights: dict, device, name: str) -> dict:
@@ -2761,13 +2905,44 @@ def routed_phase(d: str, weights: dict, device, name: str) -> dict:
     q = counts["fused_pdf_spherical_routed"]
     require(bool(np.isfinite(img).all()) and img.max() > 0, "array neural-sphere exact: non-finite or black image")
     require(all(counts[k] == v * bounces for k, v in ROUTED_WANT.items()) and bounces <= q <= 2 * bounces
-            and all(counts[k] == 0 for k in fo.launches if k not in ROUTED_WANT and k != "fused_pdf_spherical_routed"),
+            and all(counts[k] == 0 for k in (*fo.launches, *warp2d.launches)
+                    if k not in ROUTED_WANT and k != "fused_pdf_spherical_routed"),
             f"array neural-sphere exact: launches {counts} in {bounces} bounces, expected {ROUTED_WANT} a bounce, "
             "1 or 2 routed queries and nothing else")
     out["render"] = {"seconds": dt, "mray_samples_per_s": RENDER_RES * RENDER_RES * ARRAY_SPP / dt / 1e6,
                      "bounces": bounces, "launches": counts, "mean_rgb": img.reshape(-1, 3).mean(0).tolist()}
     log(f"  routed render: {json.dumps(out['render'])}")
     return out
+
+
+WARP_LABELS = {"sample_env": "W: the envmap's draw", "eval_env": "W: the envmap's radiance",
+               "pdf_env": "W: the envmap's pdf", "eval_pdf_brdf": "W: the measured BRDF's fused (f, pdf)",
+               "sample_brdf": "W: the measured BRDF's draw", "eval_lum": "W: the measured BRDF's luminance"}
+
+
+def warp_rows(warps: dict, render_counts: dict, training: dict) -> list:
+    """The `kernels` line's rows of the warp kernels (phase 6b): launches
+    from phase 8's renders (eval_lum's from phase 10's disk training, whose
+    MCMC target it is), gaps and times from phase 6b."""
+    rows = []
+    for entry, label in WARP_LABELS.items():
+        kinds = ("env",) if entry.endswith("_env") else ("iso", "aniso")
+        gaps = [warps["gaps"][kind][entry] for kind in kinds]
+        times = {key: {m: r[m] for m in ("ms", "plain_ms", "bound_ms", "roofline_pct")}
+                 for key, r in warps["times"].items() if key.split(" ", 1)[0] == entry}
+        main = times[f"{entry} {kinds[0]} n={N_MAIN}"]
+        launches = (training["disk"]["warp_launches"][entry] if entry == "eval_lum"
+                    else sum(render_counts[f"{scene} {mode}"][entry] for scene, mode, _ in (*RENDERS, K3_RENDER)))
+        rows.append({"name": entry, "label": label, "route": "cuda",
+                     "source": "bsdf_diffusion_sampling_tpu_torch/csrc/warp2d.cu",
+                     "replaces": "none: the JAX package runs the 2D warp and its users under XLA",
+                     "launches": launches, "max_gap": max(g["max_gap"] for g in gaps),
+                     "tie_share_max": max(g["tie_share"] for g in gaps),
+                     "ill_share_max": max(g["ill_share"] for g in gaps),
+                     "bit_equal_share_min": min(g["bit_equal_share"] for g in gaps),
+                     **main, "bound_by": "bytes", "library_ms": None, "precision": "fp32", "n": N_MAIN,
+                     "times": times})
+    return rows
 
 
 def routed_rows(routed: dict) -> list:
@@ -3307,7 +3482,12 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
     t0 = time.time()
     k5 = [r for n in (N_MAIN, N_RAGGED) for r in check_traverse(scene.accel, scene.camera, device, n).values()]
     log(f"[6] K5 vs plain walker at n = {N_MAIN} and {N_RAGGED}: ok ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    warps = warp_phase(device, name)
+    log(f"[6b] the envmap's and the measured BRDF's kernels vs plain at n = {N_MAIN} over 1, 2 and 4 slices, "
+        f"timed at n = {N_MAIN} and {4 * N_MAIN}: ok ({time.time() - t0:.1f} s)")
     if args.check_only:
+        print(json.dumps({"warps": {"card": smi, **warps}}))
         return 0
 
     t0 = time.time()
@@ -3469,12 +3649,14 @@ def run(args, d: str, device, smi: str, name: str, t_start: float) -> int:
             "checks": sphere["check_launches"][k],
             "renders": {label: r["launches"][k] for label, r in sphere["renders"].items()}}
     rows += routed_rows(routed)
+    rows += warp_rows(warps, render_counts, training)
     require(all(r["launches"] > 0 for r in rows), "a kernel of the main path was never launched")
     log(f"[16] total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {"card": smi, **training}}))
     print(json.dumps({"differentiable": {"card": smi, **diff}}))
     print(json.dumps({"multidevice": {"card": smi, **multidevice}}))
     print(json.dumps({"rest": {"card": smi, **rest}}))
+    print(json.dumps({"warps": {"card": smi, **warps}}))
     print(json.dumps({"quality": {"card": smi, **quality}}))
     print(json.dumps({"arrays": {"card": smi, **arrays}}))
     print(json.dumps({"sphere_quality": {"card": smi, **{k: sphere[k] for k in (
